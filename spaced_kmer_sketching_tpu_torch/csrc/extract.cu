@@ -1,0 +1,189 @@
+// K1: fused spaced-seed extract + boost hash + FracMinHash filter +
+// per-row compaction.
+//
+// Replaces spaced_kmer_sketching_tpu/ops/pallas/extract.py::_compact_kernel
+// (entry extract_compact_windows_prepacked, body _extract_block_packed,
+// epilogue _compact_epilogue), ported by its contract, not its Mosaic
+// schedule: no 16x-repeated window-index planes, no lane/sublane rolls, no
+// MXU cumsum.  For genome g and window t:
+//   S     = the 128 bits of the 2-bit code stream from code t (code t+j at
+//           bits 2j..2j+1), read from raw packed words, 16 codes per u32,
+//           LSB first (utils/native.pack2bit);
+//   rc    = ~S & mask       (complement code 3-c == ~c, same positions);
+//   fwd   = (nucleotide-reverse of S) >> (128 - 2w), & mask;
+//   key   = fwd if fwd < rc (strictly, as 128-bit values) else rc;
+//   valid = t+w-1 < n and rid[t] == rid[t+w-1] >= 0;
+//   keep  = valid and (boost_hash(key) ^ salt) % scale == 0.
+// Each 128-window row writes its first k_slots kept keys in window order
+// (low `out_words` words only) with all-ones fill, plus its TRUE kept
+// count, so a caller detects slot overflow exactly.  Window, mask, salt,
+// scale and the hash variant are runtime arguments: one build serves every
+// (window, k) config of a sweep.
+//
+// What bounds it on an H100: integer issue, not bytes.  A window reads
+// ~4.25 B (one int32 run id, a sixteenth of four code words) but spends a
+// few hundred integer instructions: two 64-bit bit reversals, ~10 64-bit
+// multiplies of the hash and a 64-bit modulo.  At n = 8.4M windows that is
+// ~36 MB of traffic (about 11 us at 3.35 TB/s) against ~2.5e9 instructions.
+// The design therefore keeps everything in registers: one thread per
+// window, the key and hash in native 64-bit arithmetic (the TPU kernel
+// emulated 64-bit on u32 lane pairs), neighbouring threads read the same
+// packed words (broadcast, coalesced), and the row ranking costs four
+// __ballot_sync/__popc and one shared-memory exchange per 128 windows.
+#include "common.cuh"
+
+namespace sks {
+namespace {
+
+__device__ __forceinline__ uint64_t hash_mix(uint64_t x) {
+  const uint64_t m = 0x0E9846AF9B1A615DULL;
+  x ^= x >> 32;
+  x *= m;
+  x ^= x >> 32;
+  x *= m;
+  x ^= x >> 28;
+  return x;
+}
+
+// boost >= 1.81 hash_combine
+__device__ __forceinline__ uint64_t combine_modern(uint64_t seed, uint64_t v) {
+  return hash_mix(seed + 0x9E3779B9ULL + v);
+}
+
+// boost < 1.81 hash_combine_impl<64>
+__device__ __forceinline__ uint64_t combine_legacy(uint64_t h, uint64_t k) {
+  const uint64_t m = 0xC6A4A7935BD1E995ULL;
+  k *= m;
+  k ^= k >> 47;
+  k *= m;
+  h ^= k;
+  h *= m;
+  return h + 0xE6546B64ULL;
+}
+
+// boost::hash_value of a 128-bit dynamic_bitset with blocks {lo, hi}
+__device__ __forceinline__ uint64_t hash_bitset128(uint64_t lo, uint64_t hi,
+                                                   bool legacy) {
+  if (legacy) {
+    return combine_legacy(128, combine_legacy(combine_legacy(0, lo), hi));
+  }
+  return combine_modern(128, combine_modern(combine_modern(0, lo), hi));
+}
+
+// Reverse the 32 2-bit groups of x, keeping each group's bit order.
+__device__ __forceinline__ uint64_t rev2(uint64_t x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ULL) |
+         ((x & 0x5555555555555555ULL) << 1);
+}
+
+__device__ __forceinline__ uint32_t key_word(uint64_t lo, uint64_t hi,
+                                             int q) {
+  const uint64_t w = q < 2 ? lo : hi;
+  return static_cast<uint32_t>((q & 1) ? (w >> 32) : w);
+}
+
+// grid (rows, G), block 128: one thread per window of one 128-window row
+__global__ void __launch_bounds__(LANES) extract_compact_kernel(
+    const uint32_t* __restrict__ packed, int64_t packed_words,
+    const int32_t* __restrict__ rid, int64_t n, int64_t rows, int window,
+    uint64_t mask_lo, uint64_t mask_hi, uint64_t salt, uint32_t scale,
+    bool legacy, int k_slots, int out_words, uint32_t* __restrict__ out,
+    int32_t* __restrict__ rowcnt) {
+  const int64_t row = blockIdx.x;
+  const int64_t g = blockIdx.y;
+  const int64_t t = row * LANES + threadIdx.x;
+  const uint32_t* pg = packed + g * packed_words;
+  const int32_t* rg = rid + g * n;
+
+  bool keep = false;
+  uint64_t key_lo = 0, key_hi = 0;
+  const int64_t last = t + window - 1;
+  if (last < n) {
+    const int32_t ra = rg[t];
+    if (ra >= 0 && ra == rg[last]) {
+      const int64_t a = t >> 4;
+      const int o = 2 * static_cast<int>(t & 15);
+      uint32_t v[5];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        v[i] = (a + i < packed_words) ? pg[a + i] : 0u;
+      }
+      const uint64_t w0 = v[0] | (static_cast<uint64_t>(v[1]) << 32);
+      const uint64_t w1 = v[2] | (static_cast<uint64_t>(v[3]) << 32);
+      const uint64_t w2 = v[4];
+      // o == 0 would shift by 64, which C++ leaves undefined
+      const uint64_t s_lo = o ? (w0 >> o) | (w1 << (64 - o)) : w0;
+      const uint64_t s_hi = o ? (w1 >> o) | (w2 << (64 - o)) : w1;
+      const uint64_t rc_lo = ~s_lo & mask_lo;
+      const uint64_t rc_hi = ~s_hi & mask_hi;
+      uint64_t f_lo = rev2(s_hi);
+      uint64_t f_hi = rev2(s_lo);
+      const int s = 128 - 2 * window;  // 0 (w = 64) .. 126
+      if (s >= 64) {
+        f_lo = f_hi >> (s - 64);
+        f_hi = 0;
+      } else if (s > 0) {
+        f_lo = (f_lo >> s) | (f_hi << (64 - s));
+        f_hi >>= s;
+      }
+      f_lo &= mask_lo;
+      f_hi &= mask_hi;
+      const bool fwd = f_hi < rc_hi || (f_hi == rc_hi && f_lo < rc_lo);
+      key_lo = fwd ? f_lo : rc_lo;
+      key_hi = fwd ? f_hi : rc_hi;
+      keep = (hash_bitset128(key_lo, key_hi, legacy) ^ salt) % scale == 0;
+    }
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(FULL, keep);
+  __shared__ int wcnt[LANES / 32];
+  if (lane == 0) wcnt[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0;
+#pragma unroll
+  for (int i = 0; i < LANES / 32; ++i) base += (i < warp) ? wcnt[i] : 0;
+  const int total = wcnt[0] + wcnt[1] + wcnt[2] + wcnt[3];
+  const int rank = base + __popc(ballot & ((1u << lane) - 1u));
+
+  const int64_t plane = static_cast<int64_t>(gridDim.y) * rows * k_slots;
+  uint32_t* o = out + (g * rows + row) * k_slots;
+  if (keep && rank < k_slots) {
+    for (int q = 0; q < out_words; ++q) {
+      o[q * plane + rank] = key_word(key_lo, key_hi, q);
+    }
+  }
+  const int filled = min(total, k_slots);
+  if (static_cast<int>(threadIdx.x) >= filled &&
+      static_cast<int>(threadIdx.x) < k_slots) {
+    for (int q = 0; q < out_words; ++q) o[q * plane + threadIdx.x] = SENT;
+  }
+  if (threadIdx.x == 0) rowcnt[g * rows + row] = total;
+}
+
+}  // namespace
+}  // namespace sks
+
+// packed (G, packed_words) u32; rid (G, n) i32 with 16 * packed_words >= n;
+// out (out_words, G, rows * k_slots) u32; rowcnt (G, rows) i32.
+extern "C" int sks_extract_compact(
+    const void* packed, int64_t packed_words, const void* rid, int64_t n,
+    int g, int64_t rows, int window, uint64_t mask_lo, uint64_t mask_hi,
+    uint64_t salt, int scale, int legacy, int k_slots, int out_words,
+    void* out, void* rowcnt, void* stream) {
+  if (g <= 0 || rows <= 0 || window < 1 || window > 64 || scale < 1 ||
+      k_slots < 1 || k_slots > sks::LANES || out_words < 1 ||
+      out_words > 4 || g > 65535 || 16 * packed_words < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(g));
+  sks::extract_compact_kernel<<<grid, sks::LANES, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), packed_words,
+      static_cast<const int32_t*>(rid), n, rows, window, mask_lo, mask_hi,
+      salt, static_cast<uint32_t>(scale), legacy != 0, k_slots, out_words,
+      static_cast<uint32_t*>(out), static_cast<int32_t*>(rowcnt));
+  return sks::last_error();
+}

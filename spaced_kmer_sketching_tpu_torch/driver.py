@@ -1,0 +1,146 @@
+"""Experiment driver + CLI of the PyTorch port — the reference `main`.
+
+Mirrors src/kmer-sketching.cpp:151-240, as the JAX package's driver does:
+  * one experiment = generate mask (seed 0) -> sketch all FASTA files ->
+    all-pairs intersections (ordered, incl. self) -> containment (denominator
+    = FIRST set of each ordered pair) -> ANI -> append CSV rows;
+  * wall-clock spans printed to stdout in the reference's exact format
+    ("Time taken for sketching = X ms" / "Time taken for comparison = X ms",
+    src/kmer-sketching.cpp:175,203), taken after the device work is done;
+  * the argv contract `prog OUTPUT_CSV FASTA...` and the hard-coded sweep —
+    (w=10,k=10) fresh CSV, then k=11..40 with w=k, then k=10..40 with w=k+10,
+    all appended (src/kmer-sketching.cpp:214-240).
+
+`--device` (default cuda) is the counterpart of the JAX driver's
+`--platform`: `cuda` without a GPU raises, `cpu` runs the kernels' plain
+PyTorch versions.  The JAX driver's `--pairing ring`, `--store`, `--profile`
+and `--mesh` are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .config import SketchConfig
+from .csvout import write_to_csv
+from .generators import all_pair_indices
+from .models.fracminhash import FracMinHashSketcher
+
+
+def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
+                   output_filename: str, is_append: bool,
+                   config: Optional[SketchConfig] = None,
+                   sketcher: Optional[FracMinHashSketcher] = None,
+                   echo_timings: bool = True, device="cuda") -> np.ndarray:
+    """One (window, k) experiment over `filenames`; returns the flat ANI list
+    in reference pair order (all ordered pairs incl. self, row-major)."""
+    cfg = config or SketchConfig(window=window_size, k=kmer_size)
+    if (cfg.window, cfg.k) != (window_size, kmer_size):
+        cfg = SketchConfig(window=window_size, k=kmer_size,
+                           mask_seed=cfg.mask_seed, scale=cfg.scale,
+                           nonce=cfg.nonce, hash_variant=cfg.hash_variant,
+                           sketch_capacity=cfg.sketch_capacity)
+    sk = sketcher or FracMinHashSketcher(cfg, device=device)
+
+    t0 = time.perf_counter()
+    sketches = sk.sketch_files(filenames)
+    if sk.device.type == "cuda":
+        torch.cuda.synchronize(sk.device)
+    t1 = time.perf_counter()
+    if echo_timings:
+        print(f"Time taken for sketching = {(t1 - t0) * 1e3} ms")
+
+    counts = np.array([s.count for s in sketches], dtype=np.int64)
+    g = len(sketches)
+    inter = sk.all_pairs_intersections(sketches)      # (G, G) int32
+    # ordered pairs row-major: pair (i, j) -> denominator |set_i|
+    pairs = all_pair_indices(g)
+    ani = sk.ani_from_intersections(inter.reshape(-1),
+                                    np.repeat(counts, max(g, 1)))
+    t2 = time.perf_counter()
+    if echo_timings:
+        print(f"Time taken for comparison = {(t2 - t1) * 1e3} ms")
+    write_to_csv([str(filenames[i]) for i, _ in pairs],
+                 [str(filenames[j]) for _, j in pairs],
+                 list(map(float, ani)), window_size, sk.mask,
+                 output_filename, is_append)
+    return ani
+
+
+def reference_sweep_schedule():
+    """The 62 (window, k, is_append) configs of the reference main
+    (src/kmer-sketching.cpp:219-239)."""
+    sched = [(10, 10, False)]
+    sched += [(k, k, True) for k in range(11, 41)]
+    sched += [(k + 10, k, True) for k in range(10, 41)]
+    return sched
+
+
+def run_reference_sweep(output_filename: str, filenames: Sequence[str],
+                        config: Optional[SketchConfig] = None,
+                        echo_timings: bool = True, device="cuda") -> None:
+    """The reference's 62-config main loop."""
+    for window, k, is_append in reference_sweep_schedule():
+        run_experiment(window, k, filenames, output_filename, is_append,
+                       config=config, echo_timings=echo_timings,
+                       device=device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(
+        prog="spaced-kmer-sketching-tpu-torch",
+        description="Spaced k-mer FracMinHash ANI estimation on a CUDA GPU "
+                    "(PyTorch port)")
+    parser.add_argument("output_csv")
+    parser.add_argument("fastas", nargs="+")
+    parser.add_argument("--window", type=int, default=None,
+                        help="run ONE experiment at this window (with --k) "
+                             "instead of the reference's 62-config sweep")
+    parser.add_argument("--k", type=int, default=None)
+    parser.add_argument("--scale", type=int, default=SketchConfig.scale)
+    parser.add_argument("--nonce", type=int, default=SketchConfig.nonce)
+    parser.add_argument("--mask-seed", type=int, default=SketchConfig.mask_seed)
+    parser.add_argument("--hash-variant", choices=("modern", "legacy"),
+                        default=SketchConfig.hash_variant)
+    parser.add_argument("--append", action="store_true",
+                        help="append to the CSV (single-experiment mode)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (the kernels; raises "
+                             "without a GPU) or cpu (their plain versions)")
+    args = parser.parse_args(argv)
+
+    if (args.window is None) != (args.k is None):
+        parser.error("--window and --k must be given together")
+    base = SketchConfig(
+        window=args.window or 10, k=args.k or 10, scale=args.scale,
+        nonce=args.nonce, mask_seed=args.mask_seed,
+        hash_variant=args.hash_variant)
+
+    try:
+        if args.window is not None:
+            run_experiment(args.window, args.k, args.fastas, args.output_csv,
+                           args.append, config=base, device=args.device)
+        else:
+            run_reference_sweep(args.output_csv, args.fastas, config=base,
+                                device=args.device)
+    except FileNotFoundError as e:
+        # reference CLI error parity: an unopenable FASTA prints to stderr
+        # and exits 1 (src/fasta_processing.cpp:86-90) — the exact bytes,
+        # including the trailing space and the leading space on the second
+        # line ("Unable to open <f>. \n Exiting..." << std::endl)
+        msg = str(e)
+        prefix = "Unable to open "
+        fname = msg[len(prefix):] if msg.startswith(prefix) else msg
+        print(f"Unable to open {fname}. \n Exiting...", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

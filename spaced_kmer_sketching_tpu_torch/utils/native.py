@@ -1,0 +1,196 @@
+"""ctypes loader/builder for the native host runtime (native/sketchlib.cpp).
+
+The port builds the SAME C++ source as the JAX package, but into its own
+build directory (`spaced_kmer_sketching_tpu_torch/_build/`, gitignored):
+the JAX package's tests build `native/build/` from several processes at
+once, and two packages writing one file would race.  The library name
+carries a hash of the source's content, so an edited source is rebuilt and
+a stale library is never loaded; each build writes a temporary file and
+renames it into place, so concurrent builders never load a half-written
+library.  Everything in the port that uses the library has a pure-Python
+fallback, so the package works (more slowly) without a toolchain.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+# this file is <repo>/spaced_kmer_sketching_tpu_torch/utils/native.py
+_REPO = pathlib.Path(__file__).resolve().parents[2]
+_SRC = _REPO / "native" / "sketchlib.cpp"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
+
+_lock = threading.Lock()
+_lib = None
+_load_failed = False
+
+
+def _so_path() -> pathlib.Path:
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libsketch-{digest}.so"
+
+
+def _build(so: pathlib.Path) -> bool:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        "g++", "-O3", "-std=c++20", "-shared", "-fPIC", "-Wall", "-pthread",
+        str(_SRC), "-o", tmp,
+    ]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, so)
+        return True
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def get_lib():
+    """Return the loaded ctypes library, or None if unavailable."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    with _lock:
+        if _lib is not None or _load_failed:
+            return _lib
+        if not _SRC.exists():
+            _load_failed = True
+            return None
+        so = _so_path()
+        if not so.exists() and not _build(so):
+            _load_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError:
+            _load_failed = True
+            return None
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+def _declare(lib):
+    c = ctypes
+    lib.skt_mask_indices.restype = c.c_int
+    lib.skt_mask_indices.argtypes = [c.c_int, c.c_int, c.c_uint64, c.POINTER(c.c_int32)]
+    lib.skt_fasta_open.restype = c.c_void_p
+    lib.skt_fasta_open.argtypes = [c.c_char_p]
+    lib.skt_fasta_total_codes.restype = c.c_int64
+    lib.skt_fasta_total_codes.argtypes = [c.c_void_p]
+    lib.skt_fasta_num_runs.restype = c.c_int64
+    lib.skt_fasta_num_runs.argtypes = [c.c_void_p]
+    lib.skt_fasta_copy.restype = None
+    lib.skt_fasta_copy.argtypes = [c.c_void_p, c.POINTER(c.c_uint8), c.POINTER(c.c_int64)]
+    lib.skt_fasta_close.restype = None
+    lib.skt_fasta_close.argtypes = [c.c_void_p]
+    lib.skt_sketch_codes.restype = c.c_int64
+    lib.skt_sketch_codes.argtypes = [
+        c.POINTER(c.c_uint8), c.POINTER(c.c_int64), c.c_int64,
+        c.c_uint64, c.c_uint64, c.c_int,
+        c.c_uint64, c.c_uint64, c.c_int,
+        c.POINTER(c.c_uint64), c.c_int64]
+    lib.skt_intersect_sorted.restype = c.c_int64
+    lib.skt_intersect_sorted.argtypes = [
+        c.POINTER(c.c_uint64), c.c_int64, c.POINTER(c.c_uint64), c.c_int64]
+    lib.skt_pack2bit.restype = None
+    lib.skt_pack2bit.argtypes = [
+        c.POINTER(c.c_uint8), c.c_int64, c.c_int64, c.POINTER(c.c_uint32)]
+
+
+def available() -> bool:
+    return get_lib() is not None
+
+
+# --- typed convenience wrappers -------------------------------------------------
+
+def mask_indices(window: int, k: int, seed: int):
+    """First k entries of shuffle(iota(window), mt19937(seed)) — or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(k, dtype=np.int32)
+    rc = lib.skt_mask_indices(window, k, seed,
+                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        raise ValueError(f"skt_mask_indices failed for window={window} k={k}")
+    return out
+
+
+def fasta_parse(path: str):
+    """Parse a FASTA file -> (codes uint8 array, run_lens int64 array), or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    h = lib.skt_fasta_open(os.fsencode(path))
+    if not h:
+        raise FileNotFoundError(f"Unable to open {path}")
+    try:
+        n_codes = lib.skt_fasta_total_codes(h)
+        n_runs = lib.skt_fasta_num_runs(h)
+        codes = np.empty(max(n_codes, 1), dtype=np.uint8)
+        run_lens = np.empty(max(n_runs, 1), dtype=np.int64)
+        lib.skt_fasta_copy(h, codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                           run_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return codes[:n_codes], run_lens[:n_runs]
+    finally:
+        lib.skt_fasta_close(h)
+
+
+def sketch_codes(codes: np.ndarray, run_lens: np.ndarray, mask_lo: int, mask_hi: int,
+                 window: int, salt: int, scale: int, legacy: bool) -> np.ndarray:
+    """Scalar CPU sketch -> sorted unique (n,2) uint64 [lo,hi] key array."""
+    lib = get_lib()
+    assert lib is not None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    run_lens = np.ascontiguousarray(run_lens, dtype=np.int64)
+    total_windows = int(np.maximum(run_lens - window + 1, 0).sum())
+    cap = max(64, total_windows // max(int(scale), 1) * 4 + 1024)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    while True:
+        out = np.empty((cap, 2), dtype=np.uint64)
+        n = lib.skt_sketch_codes(
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            run_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), run_lens.size,
+            np.uint64(mask_lo), np.uint64(mask_hi), window,
+            np.uint64(salt), np.uint64(scale), int(legacy),
+            out.ctypes.data_as(u64p), cap)
+        if n >= 0:
+            return out[:n]
+        cap = -n
+
+
+def pack2bit(codes: np.ndarray, n_words: int) -> np.ndarray:
+    """Pack codes (n,) uint8 values 0..3 into n_words uint32, 16 codes per
+    word LSB-first, positions past n as code 0 — the genome plane the extract
+    kernel reads (ops/cuda/extract.py)."""
+    lib = get_lib()
+    assert lib is not None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    out = np.empty(n_words, dtype=np.uint32)
+    lib.skt_pack2bit(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        np.int64(codes.shape[0]), np.int64(n_words),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out
+
+
+def intersect_sorted(a: np.ndarray, b: np.ndarray) -> int:
+    lib = get_lib()
+    assert lib is not None
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    return lib.skt_intersect_sorted(a.ctypes.data_as(u64p), a.shape[0],
+                                    b.ctypes.data_as(u64p), b.shape[0])

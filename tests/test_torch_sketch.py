@@ -1,0 +1,250 @@
+"""The port's sketch step and sketcher against the JAX package and the oracle.
+
+The port runs on the CPU, where every kernel wrapper takes its plain
+PyTorch version; the JAX step runs its Pallas kernels in interpret mode.
+Inputs are made from a seed with numpy.  Every comparison is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spaced_kmer_sketching_tpu.config import SketchConfig as JaxConfig
+from spaced_kmer_sketching_tpu.ingest.fasta import PackedSeqs as JaxPacked
+from spaced_kmer_sketching_tpu.models.fracminhash import (
+    FracMinHashSketcher as JaxSketcher, Sketch as JaxSketch)
+from spaced_kmer_sketching_tpu.ops import sketch as jax_sketch
+from spaced_kmer_sketching_tpu.ops.extract import run_ids_from_lens
+from spaced_kmer_sketching_tpu.ops.pallas.extract import pack_genomes_np
+from spaced_kmer_sketching_tpu.utils import boosthash
+from spaced_kmer_sketching_tpu.utils.masks import spaced_seed_mask
+
+from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
+from spaced_kmer_sketching_tpu_torch.models import fracminhash
+from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+    FracMinHashSketcher, Sketch)
+from spaced_kmer_sketching_tpu_torch.ops import sketch as t_sketch
+from spaced_kmer_sketching_tpu_torch.ops import u64ops
+from spaced_kmer_sketching_tpu_torch.ops.cuda.extract import pack2bit_rows
+
+from oracle import oracle_sketch
+
+
+def run_dyn(g, n, cap, scale, window, k, variant, runs, seed):
+    """The dyn-window sketch step through both packages."""
+    mask = spaced_seed_mask(window, k, 0)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (g, n)).astype(np.uint32)
+    rid = np.stack([run_ids_from_lens(runs, n)] * g)
+    kw = t_sketch.finish_words(window)
+    qc, qr, r = pack_genomes_np(codes, rid)
+    want = jax_sketch.sketch_batch_packed_dyn(
+        jnp.asarray(qc), jnp.asarray(qr), jnp.asarray(r),
+        jnp.asarray(mask.words_u32), jnp.asarray(u64ops.salt_pair(salt)),
+        jnp.asarray([window], np.uint32), n=n, kw=kw, scale=scale,
+        variant=variant, capacity=cap, interpret=True)
+    packed = torch.from_numpy(pack2bit_rows(codes.astype(np.uint8))
+                              .view(np.int32))
+    got = t_sketch.sketch_batch_packed_dyn(
+        packed, torch.from_numpy(rid), mask.words_u32, salt, window, n=n,
+        kw=kw, scale=scale, variant=variant, capacity=cap)
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    np.testing.assert_array_equal(got.raw_kept.numpy(),
+                                  np.asarray(want.raw_kept))
+    np.testing.assert_array_equal(got.keys.numpy().view(np.uint32),
+                                  np.asarray(want.keys))
+    return got
+
+
+def test_dyn_step_tree_finish_matches_jax():
+    """Two K1 blocks; the planner chains two K2 stages, so the finish runs
+    K2, K3 and K4 exactly as the JAX `_finish_tree` does."""
+    g, n, cap, scale, window = 2, 65536, 4096, 50, 20
+    kw = t_sketch.finish_words(window)
+    nw_prog = n - (16 * (kw - 1) + 1) + 1
+    k_slots = t_sketch._k_slots_for(nw_prog, scale, cap)
+    m = (nw_prog + 32767) // 32768 * 256 * k_slots
+    assert t_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g) == \
+        [(128, 64), (64, 64)]
+    got = run_dyn(g, n, cap, scale, window, 16, "modern",
+                  [20000, 30000, n - 50100], seed=1)
+    assert (got.count.numpy() > 1000).all()
+
+
+@pytest.mark.parametrize("window,k,variant", [(10, 10, "modern"),
+                                              (20, 16, "legacy"),
+                                              (33, 25, "modern"),
+                                              (64, 40, "modern")])
+def test_dyn_step_sort_all_finish_matches_jax(window, k, variant):
+    """The shape of the JAX package's shared-program test: no chain is
+    planned, so the port's sort-everything finish is held against the JAX
+    `_finish_candidates`."""
+    g, n, cap, scale = 3, 4096, 1024, 20
+    kw = t_sketch.finish_words(window)
+    nw_prog = n - (16 * (kw - 1) + 1) + 1
+    k_slots = t_sketch._k_slots_for(nw_prog, scale, cap)
+    m = (nw_prog + 32767) // 32768 * 256 * k_slots
+    assert t_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g) is None
+    run_dyn(g, n, cap, scale, window, k, variant, [1500, 900, n - 2400],
+            seed=window)
+
+
+@pytest.mark.parametrize("n,window,scale,cap,g", [
+    (8388608, 20, 200, 65536, 8),     # config 1: two E. coli-sized genomes
+    (8388608, 50, 200, 65536, 2),
+    (4194304, 16, 200, 32768, 4),
+    (65536, 20, 50, 4096, 2),
+    (16384, 12, 5, 8192, 3),
+])
+def test_planner_matches_jax(n, window, scale, cap, g):
+    """The port keeps the JAX planner's shapes: key words, slots, the
+    compaction chain and its decision, so intermediates line up."""
+    kw = t_sketch.finish_words(window)
+    assert kw == jax_sketch.finish_words(window)
+    nw_prog = n - (16 * (kw - 1) + 1) + 1
+    k_slots = t_sketch._k_slots_for(nw_prog, scale, cap)
+    assert k_slots == jax_sketch._k_slots_for(nw_prog, scale, cap)
+    assert t_sketch.slots_for_scale(scale) == \
+        jax_sketch.slots_for_scale(scale)
+    m = (nw_prog + 32767) // 32768 * 256 * k_slots
+    assert t_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g) == \
+        jax_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g)
+
+
+def packed_genomes(seed):
+    """Three genomes in two size buckets, with several runs each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for lens in ([3000, 5, 2500], [9000], [20000, 1200]):
+        codes = rng.integers(0, 4, sum(lens)).astype(np.uint8)
+        out.append((codes, np.asarray(lens, np.int64)))
+    return out
+
+
+def split_runs(codes, lens):
+    runs, pos = [], 0
+    for ln in lens:
+        runs.append([int(c) for c in codes[pos:pos + int(ln)]])
+        pos += int(ln)
+    return runs
+
+
+def keys_as_ints(sketch):
+    k = sketch.keys.astype(object)
+    return [int(a) | int(b) << 32 | int(c) << 64 | int(d) << 96
+            for a, b, c, d in k]
+
+
+@pytest.mark.parametrize("window,k,scale,variant", [(14, 9, 4, "modern"),
+                                                    (36, 20, 6, "legacy")])
+def test_sketcher_matches_jax_and_oracle(window, k, scale, variant):
+    genomes = packed_genomes(window)
+    cfg = dict(window=window, k=k, scale=scale, hash_variant=variant)
+    port = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
+    got = port.sketch_packed_batch([PackedSeqs(c, lens)
+                                    for c, lens in genomes])
+    want = JaxSketcher(JaxConfig(**cfg)).sketch_packed_batch(
+        [JaxPacked(c, lens) for c, lens in genomes])
+    salt = boosthash.fmh_salt(port.mask.lo, port.mask.hi, window, 1, variant)
+    for (c, lens), a, b in zip(genomes, got, want):
+        assert a.count == b.count > 0
+        np.testing.assert_array_equal(a.keys, b.keys)
+        ints = keys_as_ints(a)
+        assert ints == sorted(ints)
+        assert set(ints) == oracle_sketch(split_runs(c, lens),
+                                          port.mask.value, window, salt,
+                                          scale, variant)
+
+
+def test_overflow_retry_matches_jax():
+    """A fixed small capacity forces the per-genome overflow retry; the
+    retried sketch equals the oracle's and the JAX sketcher's at a capacity
+    that needs no retry (the JAX retry splice writes into a read-only
+    array on the CPU, so its own retry cannot be the reference)."""
+    rng = np.random.default_rng(23)
+    genomes = [(rng.integers(0, 4, 5000).astype(np.uint8),
+                np.array([5000], np.int64)),
+               (rng.integers(0, 4, 600).astype(np.uint8),
+                np.array([600], np.int64))]
+    cfg = dict(window=14, k=9, scale=4, sketch_capacity=256)
+    port = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
+    packed = [PackedSeqs(c, lens) for c, lens in genomes]
+    codes = np.zeros((2, 16384), np.uint8)
+    rid = np.full((2, 16384), -1, np.int32)
+    for j, (c, _) in enumerate(genomes):
+        codes[j, :c.size] = c
+        rid[j, :c.size] = 0
+    first = port._dispatch_sketch(codes, rid, 256)[0]
+    raws = first.raw_kept.numpy()
+    assert raws[0] > 256 >= raws[1]          # only genome 0 overflows
+    got = port.sketch_packed_batch(packed)
+    want = JaxSketcher(JaxConfig(**dict(cfg, sketch_capacity=0))) \
+        .sketch_packed_batch([JaxPacked(c, lens) for c, lens in genomes])
+    assert got[0].count > 256
+    salt = boosthash.fmh_salt(port.mask.lo, port.mask.hi, 14, 1, "modern")
+    for (c, lens), a, b in zip(genomes, got, want):
+        assert a.count == b.count
+        np.testing.assert_array_equal(a.keys, b.keys)
+        assert set(keys_as_ints(a)) == oracle_sketch(
+            split_runs(c, lens), port.mask.value, 14, salt, 4)
+
+
+def test_sketch_npz_is_the_jax_format(tmp_path):
+    """A sketch the JAX package saved loads in the port and compares equal
+    to the port's own sketch of the same genome, and the other way round."""
+    (c, lens), = packed_genomes(5)[:1]
+    cfg = dict(window=20, k=16, scale=5)
+    jax_sk = JaxSketcher(JaxConfig(**cfg)).sketch_packed(JaxPacked(c, lens),
+                                                         name="g0")
+    port_sk = FracMinHashSketcher(SketchConfig(**cfg), device="cpu") \
+        .sketch_packed(PackedSeqs(c, lens), name="g0")
+    jax_sk.save(str(tmp_path / "jax.npz"))
+    loaded = Sketch.load(str(tmp_path / "jax.npz"))
+    assert (loaded.count, loaded.window, loaded.mask, loaded.name) == \
+        (port_sk.count, port_sk.window, port_sk.mask, port_sk.name)
+    np.testing.assert_array_equal(loaded.keys, port_sk.keys)
+    port_sk.save(str(tmp_path / "port.npz"))
+    back = JaxSketch.load(str(tmp_path / "port.npz"))
+    assert back.count == jax_sk.count and back.mask == jax_sk.mask
+    np.testing.assert_array_equal(back.keys, jax_sk.keys)
+
+
+def test_all_pairs_matches_jax():
+    genomes = packed_genomes(8)
+    cfg = dict(window=12, k=8, scale=3)
+    port = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
+    got = port.all_pairs_intersections(port.sketch_packed_batch(
+        [PackedSeqs(c, lens) for c, lens in genomes]))
+    jsk = JaxSketcher(JaxConfig(**cfg))
+    want = jsk.all_pairs_intersections(jsk.sketch_packed_batch(
+        [JaxPacked(c, lens) for c, lens in genomes]))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_more_than_8_genomes_needs_k5_k6():
+    sk = FracMinHashSketcher(SketchConfig(window=12, k=8), device="cpu")
+    empty = Sketch(keys=np.empty((0, 4), np.uint32), count=0, window=12,
+                   mask=sk.mask)
+    with pytest.raises(NotImplementedError, match="K5"):
+        sk.all_pairs_intersections([empty] * 9)
+
+
+def test_streaming_size_files_are_refused(tmp_path, monkeypatch):
+    path = tmp_path / "big.fa"
+    path.write_text(">r\n" + "ACGT" * 100 + "\n")
+    sk = FracMinHashSketcher(SketchConfig(window=12, k=8), device="cpu")
+    monkeypatch.setattr(FracMinHashSketcher, "_STREAM_THRESHOLD_BYTES", 64)
+    with pytest.raises(NotImplementedError, match="module 6"):
+        sk.sketch_files([str(path)])
+
+
+def test_cuda_device_without_gpu_raises(monkeypatch):
+    """The default device is cuda; without a GPU the sketcher raises
+    instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FracMinHashSketcher(SketchConfig(window=12, k=8))
+    assert fracminhash.resolve_device("cpu").type == "cpu"
