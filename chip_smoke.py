@@ -7,20 +7,33 @@ Run from the repository root with no arguments:
 
 It imports nothing of JAX and exits non-zero, printing no result, when no
 CUDA GPU is usable or the port's package is not beside it.  Phases:
-  1. build the Hopper kernels (csrc/*.cu) with nvcc;
-  2. hold each kernel K1-K4 against its plain PyTorch version on the GPU,
-     bit for bit, at the main path's shapes (n = 8,388,608 windows for kw
-     = 1..4; the compaction stages the planner gives; the sort at 65,536
-     keys, G = 2), and time both with CUDA events;
+  1. build the Hopper kernels (csrc/*.cu) with nvcc, one process per source;
+  2. hold each kernel against its plain PyTorch version on the GPU, bit for
+     bit, and time both with CUDA events: K1-K4 at the sketch step's shapes
+     (n = 8,388,608 windows for kw = 1..4; the compaction stages the
+     planner gives; the sort at 65,536 keys, G = 2); K5 and K6 at config
+     2's shapes (128 runs of 32,768 entries, pw 2, gp 128), at pw 5 and at
+     gp 2048 (2,048 runs of 2,048); K10 and K6 (split) at the blocked
+     schedule's macro-tile (two presorted blocks of 128 x 32,768, gp 256);
   3. write synthetic FASTAs from --seed (8 genomes of 4-6 Mnt with a few
      records and N-runs, genome 1 a 3%-mutated copy of genome 0) and run
      the CLI (`driver.main --window 20 --k 16 --device cuda`) on all 8, then
      on genomes 0 and 1 alone (BASELINE config 1, twice: cold and warm);
-  4. run the CLI's 62-config reference sweep on genomes 0 and 1.
-Every sketch of phases 3-4 must equal the native C++ scalar pipeline's
-(native/sketchlib.cpp) and every CSV value the host math on those sketches.
-The kernels' launch counters are reset before phase 3 and must all be
-positive after phase 4.
+  4. run the CLI's 62-config reference sweep on genomes 0 and 1;
+  5. BASELINE config 2: 100 related FASTAs of 4-6 Mnt (one ancestor, 5
+     clade roots 3% substituted from it, 20 members per clade 0.2-2%
+     substituted from their root) through the same CLI; all-pairs takes
+     the device Gram (K5, K6);
+  6. all_pairs_intersections on 4,096 synthetic sketches of ~25,000 40-bit
+     keys (capacity 32,768) drawn from 64 clade pools: the blocked
+     block-cache route (K5 per block, K10 + K6 per macro-tile).
+Every sketch of phases 3-5 must equal the native C++ scalar pipeline's
+(native/sketchlib.cpp) and every CSV value the host math on native
+intersections of those sketches; phase 6's matrix must have the counts on
+its diagonal, be symmetric, and equal native merges on every pair of two
+whole blocks and on a seeded sample of 2,000 pairs.  The kernels' launch
+counters are set to 0 before each of the paths (phases 3-4, 5, 6) and read
+after it; each kernel must have been launched by the path that uses it.
 
 Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}), and as the LAST line
@@ -29,6 +42,7 @@ Output: the card's name and power limit, a JSON line of per-kernel results
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import contextlib
 import io
 import json
@@ -43,7 +57,10 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 TOLERANCE = 0        # integer keys and counts: every comparison is exact
-GENOMES = 8          # phase 3: the most the port's all-pairs takes (G <= 8)
+GENOMES = 8          # phase 3: the native host merge's largest G
+CONFIG2_GENOMES = 100
+BLOCKED_GENOMES = 4096
+M32 = 0xFFFFFFFF
 
 
 class SmokeFailure(RuntimeError):
@@ -194,37 +211,189 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
     return res
 
 
+def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits):
+    """(g, cap, kw) int32 device sketches: genome i draws each key of its
+    clade's pool ((i // 32) % clades) with probability count / pool; pools
+    are strictly ascending (random steps), so every sketch is sorted and
+    unique, all-ones padded.  Words past the 62 random low bits are a slow
+    ramp and a per-clade constant, so 128-bit keys stay ascending too."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.ops import u64ops
+    from spaced_kmer_sketching_tpu_torch.ops.gram import _guard_words
+
+    kw = _guard_words(key_bits)
+    step = max(2, (1 << min(key_bits, 62)) // pool)
+    low = torch.randint(1, step, (clades, pool), generator=gen, device=dev,
+                        dtype=torch.int64).cumsum(1)
+    words = [low & M32, low >> 32,
+             (torch.arange(pool, device=dev) >> 10).expand(clades, pool),
+             torch.randint(0, 1 << 31, (clades, 1), generator=gen,
+                           device=dev).expand(clades, pool)][:kw]
+    table = torch.stack([u64ops.as_i32(w) for w in words], -1)
+    table = torch.cat([table, torch.full((clades, 1, kw), -1,
+                                         dtype=torch.int32, device=dev)], 1)
+    pick = torch.rand((g, pool), generator=gen, device=dev) < count / pool
+    idx = torch.where(pick, torch.arange(pool, device=dev), pool)
+    idx = idx.sort(dim=1).values[:, :cap]
+    clade = (torch.arange(g, device=dev) // 32) % clades
+    return table[clade[:, None], idx]
+
+
+def packed_runs(keys, key_bits, gidbits):
+    """(g, cap, kw) sketches -> (pw, g*cap/128, 128) packed planes whose
+    cap-entry runs (one genome each) are ascending."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.ops import gram
+
+    g, cap, _ = keys.shape
+    pw = gram.pack_plan(key_bits, gidbits)
+    gid = torch.arange(g, device=keys.device)[:, None].expand(g, cap)
+    planes = gram._pack_gid_planes(keys, gid, key_bits, gidbits, pw)
+    return planes.reshape(pw, g * cap // 128, 128)
+
+
+def phase_gram_kernels(dev, timer, seed):
+    """K5, K6 and K10 against their plain versions: K5 and K6 at config
+    2's shapes (128 genome runs of 32,768, 40-bit keys, pw 2, gp 128) and
+    at pw 5 (128-bit keys) and gp 2048 (2,048 runs of 2,048); K10 and the
+    split K6 at a blocked macro-tile (two presorted blocks of 128 x
+    32,768, gidbits 8, gp 256).  Returns per-kernel max_abs_err and times."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import gram_tiles, sort
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    res = {"K5": {"max_abs_err": 0}, "K6": {"max_abs_err": 0},
+           "K10": {"max_abs_err": 0}}
+
+    def hold(key, got, want, what):
+        e = max_abs_err([got], [want])
+        res[key]["max_abs_err"] = max(res[key]["max_abs_err"], e)
+        print(f"{key} {what}: max_abs_err={e}")
+
+    cases = [  # (what, genomes, cap, pool, count, key_bits, timed)
+        ("config 2: 128 x 32768, 40-bit keys", 128, 32768, 32768, 25000, 40,
+         True),
+        ("pw 5: 128 x 32768, 128-bit keys", 128, 32768, 32768, 25000, 128,
+         False),
+        ("gp 2048: 2048 x 2048, 40-bit keys", 2048, 2048, 2048, 1500, 40,
+         False)]
+    for what, g, cap, pool, count, kb, timed in cases:
+        gidbits = max(1, (g - 1).bit_length())
+        runs = packed_runs(clade_keys(gen, dev, g, cap, pool, count, 64, kb),
+                           kb, gidbits)
+        merged = sort.merge_sorted_runs(runs, cap // 128)
+        hold("K5", merged, sort.merge_sorted_runs_plain(runs, cap // 128),
+             f"{what}, pw {runs.shape[0]}")
+        gram = gram_tiles.gram_tile_scan(merged, gidbits, g)
+        hold("K6", gram, gram_tiles.gram_tile_scan_plain(merged, gidbits, g),
+             f"{what}, gp {g}, Gram sum {int(gram.sum())}")
+        if timed:
+            res["K5"].update(
+                ms=timer(lambda: sort.merge_sorted_runs(runs, cap // 128), 10),
+                plain_ms=timer(lambda: sort.merge_sorted_runs_plain(
+                    runs, cap // 128), 3))
+            res["K6"].update(
+                ms=timer(lambda: gram_tiles.gram_tile_scan(merged, gidbits, g),
+                         10),
+                plain_ms=timer(lambda: gram_tiles.gram_tile_scan_plain(
+                    merged, gidbits, g), 3))
+
+    # a blocked macro-tile of two blocks that share their 4 clades, as
+    # blocks b and b + 16 of phase 6 do
+    block, cap, kb, gidbits = 128, 32768, 40, 8
+    keys = clade_keys(gen, dev, 2 * block, cap, 40000, 25000, 4, kb)
+    pa = sort.merge_sorted_runs(packed_runs(keys[:block], kb, gidbits),
+                                cap // 128)
+    pb = sort.merge_sorted_runs(packed_runs(keys[block:], kb, gidbits),
+                                cap // 128)
+    pb[0] += (pb[-1] >= 0).to(torch.int32) * block     # column gids + block
+    merged = sort.merge_pair_streams(pa, pb)
+    hold("K10", merged, sort.merge_pair_streams_plain(pa, pb),
+         f"two blocks of {block} x {cap}, pw {pa.shape[0]}")
+    tile = gram_tiles.gram_tile_scan(merged, gidbits, 2 * block, split=block)
+    hold("K6", tile, gram_tiles.gram_tile_scan_plain(
+        merged, gidbits, 2 * block, split=block),
+        f"split {block} of gp {2 * block}, tile sum {int(tile.sum())}")
+    res["K10"].update(
+        ms=timer(lambda: sort.merge_pair_streams(pa, pb), 10),
+        plain_ms=timer(lambda: sort.merge_pair_streams_plain(pa, pb), 3))
+    args = (merged, gidbits, 2 * block)
+    split_ms = timer(lambda: gram_tiles.gram_tile_scan(*args, split=block), 10)
+    split_plain = timer(
+        lambda: gram_tiles.gram_tile_scan_plain(*args, split=block), 3)
+    print(f"K6 split timing: kernel {split_ms} ms, plain {split_plain} ms")
+    for name, r in res.items():
+        need(r["max_abs_err"] <= TOLERANCE,
+             f"{name} disagrees with its plain version: {r}")
+    return res
+
+
 # --- phase 3-4 data and checks ------------------------------------------------
+
+def mutate(rng, codes, rate):
+    """A copy of codes with a `rate` share of positions substituted."""
+    out = codes.copy()
+    hit = rng.random(out.size) < rate
+    out[hit] = (out[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    return out
+
+
+def write_fasta(path, name, codes, rng):
+    """codes as a FASTA of a few records (two random cuts) with three
+    N-runs of 10-99 nt, 80 nt per line."""
+    text = np.frombuffer(b"ACGT", np.uint8)[codes]
+    for start in rng.integers(0, text.size - 200, 3):
+        text[start:start + int(rng.integers(10, 100))] = ord("N")
+    cuts = np.sort(rng.integers(1, text.size, 2))
+    with open(path, "wb") as f:
+        for r, rec in enumerate(np.split(text, cuts)):
+            f.write(f">{name}_record{r}\n".encode())
+            full = rec.size // 80 * 80
+            lines = np.full((rec.size // 80, 81), ord("\n"), np.uint8)
+            lines[:, :80] = rec[:full].reshape(-1, 80)
+            f.write(lines.tobytes())
+            if full < rec.size:
+                f.write(rec[full:].tobytes() + b"\n")
+    return str(path)
+
 
 def write_genomes(dirpath: pathlib.Path, rng, count: int,
                   nt=(4_000_000, 6_000_000)):
     """FASTAs of nt[0]..nt[1] nucleotides: a few records each, N-runs
     inside; genome 1 is a 3%-substituted copy of genome 0."""
-    alphabet = np.frombuffer(b"ACGT", np.uint8)
     base = None
     paths = []
     for i in range(count):
         length = int(rng.integers(nt[0], nt[1] + 1))
         if i == 1:
-            codes = base.copy()
-            hit = rng.random(codes.size) < 0.03
-            codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+            codes = mutate(rng, base, 0.03)
         else:
             codes = rng.integers(0, 4, length).astype(np.uint8)
         if i == 0:
             base = codes
-        text = alphabet[codes]
-        for start in rng.integers(0, text.size - 200, 3):
-            text[start:start + int(rng.integers(10, 100))] = ord("N")
-        cuts = np.sort(rng.integers(1, text.size, 2))
-        path = dirpath / f"genome{i}.fa"
-        with open(path, "wb") as f:
-            for r, rec in enumerate(np.split(text, cuts)):
-                f.write(f">genome{i}_record{r}\n".encode())
-                lines = [rec[j:j + 80].tobytes()
-                         for j in range(0, rec.size, 80)]
-                f.write(b"\n".join(lines) + b"\n")
-        paths.append(str(path))
+        paths.append(write_fasta(dirpath / f"genome{i}.fa", f"genome{i}",
+                                 codes, rng))
+    return paths
+
+
+def write_collection(dirpath: pathlib.Path, rng, clades=5, members=20,
+                     nt=(4_000_000, 6_000_000)):
+    """BASELINE config 2's collection: one ancestor of nt[1] nt; `clades`
+    roots, each 3% substituted from it; `members` genomes per clade, each
+    0.2-2% substituted from its root and cut to nt[0]..nt[1] nt."""
+    ancestor = rng.integers(0, 4, nt[1]).astype(np.uint8)
+    paths = []
+    for c in range(clades):
+        root = mutate(rng, ancestor, 0.03)
+        for m in range(members):
+            length = int(rng.integers(nt[0], nt[1] + 1))
+            codes = mutate(rng, root[:length], float(rng.uniform(0.002, 0.02)))
+            name = f"clade{c}_member{m}"
+            paths.append(write_fasta(dirpath / f"{name}.fa", name, codes, rng))
     return paths
 
 
@@ -261,9 +430,10 @@ def run_cli(argv):
     return lines, ms["sketching"], ms["comparison"]
 
 
-def check_experiment(sketcher, paths, sketches, csv_rows, parsed):
+def check_experiment(sketcher, paths, sketches, csv_rows, parsed, pool):
     """Sketches equal the native scalar pipeline; CSV rows equal the host
-    math on them.  `parsed` caches read_fasta per path."""
+    math on native intersections of them.  `parsed` caches read_fasta per
+    path; the native calls run on the thread pool `pool`."""
     from spaced_kmer_sketching_tpu_torch.ani import (binomial_estimator,
                                                      containment)
     from spaced_kmer_sketching_tpu_torch.csvout import format_double
@@ -271,26 +441,32 @@ def check_experiment(sketcher, paths, sketches, csv_rows, parsed):
     from spaced_kmer_sketching_tpu_torch.utils import native
 
     cfg, mask = sketcher.config, sketcher.mask
-    u64 = []
-    for p, s in zip(paths, sketches):
-        if p not in parsed:
-            parsed[p] = read_fasta(p)
+    for p, pk in zip(paths, pool.map(
+            lambda q: parsed[q] if q in parsed else read_fasta(q), paths)):
+        parsed[p] = pk
+
+    def scalar(p):
         pk = parsed[p]
-        want = native.sketch_codes(pk.codes, pk.run_lens, mask.lo, mask.hi,
+        return native.sketch_codes(pk.codes, pk.run_lens, mask.lo, mask.hi,
                                    cfg.window, sketcher.salt, cfg.scale,
                                    cfg.hash_variant == "legacy")
-        got = s.keys_u64()
-        need(s.count > 0 and np.array_equal(got, want),
+    u64 = list(pool.map(scalar, paths))
+    for p, s, want in zip(paths, sketches, u64):
+        need(s.count > 0 and np.array_equal(s.keys_u64(), want),
              f"w={cfg.window} k={cfg.k} {p}: sketch of {s.count} keys != "
              f"native scalar pipeline's {want.shape[0]}")
-        u64.append(want)
     g = len(paths)
     need(len(csv_rows) == g * g, f"{len(csv_rows)} CSV rows for {g} genomes")
+    inter = np.diag([s.count for s in sketches]).astype(np.int64)
+    upper = [(i, j) for i in range(g) for j in range(i + 1, g)]
+    for (i, j), v in zip(upper, pool.map(
+            lambda ij: native.intersect_sorted(u64[ij[0]], u64[ij[1]]),
+            upper)):
+        inter[i, j] = inter[j, i] = v
     for i in range(g):
         for j in range(g):
-            inter = (sketches[i].count if i == j
-                     else native.intersect_sorted(u64[i], u64[j]))
-            ani = binomial_estimator(containment(inter, sketches[i].count),
+            ani = binomial_estimator(containment(int(inter[i, j]),
+                                                 sketches[i].count),
                                      mask.care_positions)
             want_row = (f"{paths[i]},{paths[j]},{format_double(float(ani))},"
                         f"{cfg.window},{mask.bitstring()}")
@@ -298,9 +474,10 @@ def check_experiment(sketcher, paths, sketches, csv_rows, parsed):
                  f"CSV row {i * g + j}: {csv_rows[i * g + j]!r} != "
                  f"{want_row!r}")
             need(np.isfinite(ani) and 0 <= ani <= 1, f"ANI {ani}")
+    return inter
 
 
-def run_main_path(paths, tmp: pathlib.Path, device: str) -> dict:
+def run_main_path(paths, tmp: pathlib.Path, device: str, pool) -> dict:
     """Phases 3-4 through the CLI, then their checks.  Returns the config-1
     timings and the kernels' launch counts of the CLI runs alone."""
     from spaced_kmer_sketching_tpu_torch.ops.cuda import build
@@ -338,25 +515,129 @@ def run_main_path(paths, tmp: pathlib.Path, device: str) -> dict:
     need(csv3[0] == "File 1,File 2,Estimated Value,Window Size,Mask",
          "CSV header")
     sk3, p3, sketches3 = captured[0]
-    check_experiment(sk3, p3, sketches3, csv3[1:], parsed)
+    check_experiment(sk3, p3, sketches3, csv3[1:], parsed, pool)
     ani01 = float(csv3[2].split(",")[2])
     need(0.9 < ani01 < 1.0, f"ANI of the 3%-mutated copy: {ani01}")
     for (skc, pc, sc), rep in zip(captured[1:3], ("cold", "warm")):
         rows = (tmp / f"cfg1_{rep}.csv").read_text().splitlines()[1:]
-        check_experiment(skc, pc, sc, rows, parsed)
+        check_experiment(skc, pc, sc, rows, parsed, pool)
     csv4 = out4.read_text().splitlines()
     need(len(csv4) == 1 + 62 * 4, f"sweep CSV has {len(csv4)} lines")
     sweep = captured[3:]
     need(len(sweep) == 62, f"{len(sweep)} sweep experiments")
     buckets = set()
     for e, (skc, pc, sc) in enumerate(sweep):
-        check_experiment(skc, pc, sc, csv4[1 + 4 * e:5 + 4 * e], parsed)
+        check_experiment(skc, pc, sc, csv4[1 + 4 * e:5 + 4 * e], parsed,
+                         pool)
         buckets.add((2 * skc.config.window + 31) // 32)
     need(buckets == {1, 2, 3, 4}, f"key-word buckets {buckets}")
     print(f"checks: {len(captured)} experiments equal the native scalar "
           f"pipeline and the host ANI math (kw buckets {sorted(buckets)}) in "
           f"{time.perf_counter() - t0:.3f} s; ANI(genome0, genome1) = {ani01}")
     return {"launches": launches, "config1_warm": cfg1[1]}
+
+
+def run_config2(tmp: pathlib.Path, rng, pool) -> dict:
+    """Phase 5: BASELINE config 2 (100 related genomes) through the CLI,
+    then its checks.  Returns its timings and launch counts."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    paths = write_collection(tmp, rng)
+    print(f"phase 5 data: {len(paths)} related FASTAs written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    captured = record_sketches()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = tmp / "config2.csv"
+    _, s_ms, c_ms = run_cli([str(out), *paths, "--window", "20", "--k", "16",
+                             "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"phase 5: config 2 ({len(paths)} genomes, w=20, k=16): "
+          f"{wall:.3f} s wall, sketching {s_ms} ms, comparison {c_ms} ms; "
+          "launches " + json.dumps(launches))
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
+        need(launches[key] > 0, f"{key} was not launched by config 2")
+    t0 = time.perf_counter()
+    rows = out.read_text().splitlines()
+    need(len(captured) == 1, f"{len(captured)} config-2 experiments")
+    skc, pc, sc = captured[0]
+    inter = check_experiment(skc, pc, sc, rows[1:], {}, pool)
+    off = inter[~np.eye(len(pc), dtype=bool)] / np.repeat(
+        [s.count for s in sc], len(pc) - 1)
+    print(f"checks: config 2's {len(pc)} sketches equal the native scalar "
+          f"pipeline and its {len(rows) - 1} CSV rows the host math on "
+          f"native intersections in {time.perf_counter() - t0:.3f} s; "
+          f"containment off the diagonal {off.min():.4f}-{off.max():.4f}")
+    return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
+            "wall_s": wall}
+
+
+def run_blocked(rng, pool) -> dict:
+    """Phase 6: all_pairs_intersections on BLOCKED_GENOMES synthetic
+    sketches of ~25,000 40-bit keys (capacity 32,768) from 64 clade pools
+    of 40,000 keys (genome i in clade (i // 32) % 64, so blocks b and
+    b + 16 share clades and runs are ~40 long), through the blocked
+    route.  Returns its wall time and launch counts."""
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher, Sketch)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    g, clades, pool_n, count, block = BLOCKED_GENOMES, 64, 40000, 25000, 128
+    t0 = time.perf_counter()
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    steps = rng.integers(1, (1 << 40) // pool_n, (clades, pool_n),
+                         dtype=np.int64)
+    pools = np.cumsum(steps, axis=1).astype(np.uint64)   # ascending, unique
+    sketches = []
+    for i in range(g):
+        v = pools[(i // 32) % clades][rng.random(pool_n) < count / pool_n]
+        keys = np.zeros((v.size, 4), np.uint32)
+        keys[:, 0] = (v & np.uint64(M32)).astype(np.uint32)
+        keys[:, 1] = (v >> np.uint64(32)).astype(np.uint32)
+        sketches.append(Sketch(keys=keys, count=v.size, window=20,
+                               mask=sk.mask))
+    print(f"phase 6 data: {g} sketches of {min(s.count for s in sketches)}-"
+          f"{max(s.count for s in sketches)} keys in "
+          f"{time.perf_counter() - t0:.3f} s")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = sk.all_pairs_intersections(sketches)
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"phase 6: all_pairs_intersections over {g} sketches (blocked, "
+          f"block {block}): {wall:.3f} s wall; launches "
+          + json.dumps(launches))
+    for key in ("K5", "K6", "K10"):
+        need(launches[key] > 0, f"{key} was not launched by phase 6")
+
+    t0 = time.perf_counter()
+    counts = np.array([s.count for s in sketches])
+    need(out.shape == (g, g) and out.dtype == np.int32, "matrix shape/type")
+    need(np.array_equal(np.diag(out), counts), "diagonal != sketch sizes")
+    need(np.array_equal(out, out.T), "matrix not symmetric")
+    other = min(16, g // block - 1)       # block 16 shares block 0's clades
+    pairs = [(a, b) for a in range(block)
+             for b in range(other * block, (other + 1) * block)]
+    pairs += [tuple(p) for p in rng.integers(0, g, (2000, 2))]
+    u64 = {x: sketches[x].keys_u64() for ab in pairs for x in ab}
+
+    def merge(ab):
+        a, b = ab
+        return counts[a] if a == b else native.intersect_sorted(u64[a],
+                                                                u64[b])
+    got = [int(out[a, b]) for a, b in pairs]
+    want = list(pool.map(merge, pairs))
+    bad = [(p, x, y) for p, x, y in zip(pairs, got, want) if x != y]
+    need(not bad, f"{len(bad)} pairs differ from native merges: {bad[:5]}")
+    nonzero = sum(x > 0 for x in got)
+    print(f"checks: diagonal, symmetry and {len(pairs)} pairs (blocks 0 x "
+          f"{other} whole, {nonzero} nonzero) equal native merges in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "wall_s": wall}
 
 
 def main(argv=None) -> int:
@@ -395,33 +676,50 @@ def main(argv=None) -> int:
 
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
-    kres = phase_kernels(torch.device("cuda", 0), rng, time_ms)
-    print(f"phase 2: K1-K4 bit-exact vs plain in "
+    dev = torch.device("cuda", 0)
+    kres = phase_kernels(dev, rng, time_ms)
+    kres.update(phase_gram_kernels(dev, time_ms, args.seed))
+    print(f"phase 2: K1-K6 and K10 bit-exact vs plain in "
           f"{time.perf_counter() - t0:.3f} s")
 
-    # phases 3-4: the main path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:
+        # phases 3-4: the main path
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            t0 = time.perf_counter()
+            paths = write_genomes(pathlib.Path(tmp), rng, GENOMES)
+            print(f"data: {GENOMES} FASTAs written in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            run = run_main_path(paths, pathlib.Path(tmp), "cuda", pool)
+        for key in ("K1", "K2", "K3", "K4"):
+            need(run["launches"][key] > 0,
+                 f"{key} was not launched by the main path")
+        # phase 5: BASELINE config 2
         t0 = time.perf_counter()
-        paths = write_genomes(pathlib.Path(tmp), rng, GENOMES)
-        print(f"data: {GENOMES} FASTAs written in "
-              f"{time.perf_counter() - t0:.3f} s")
-        run = run_main_path(paths, pathlib.Path(tmp), "cuda")
-    for key, n_launch in run["launches"].items():
-        need(n_launch > 0, f"{key} was not launched by the main path")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cfg2 = run_config2(pathlib.Path(tmp), rng, pool)
+        print(f"phase 5: {time.perf_counter() - t0:.3f} s in all")
+        # phase 6: the blocked route at G = 4,096
+        t0 = time.perf_counter()
+        blk = run_blocked(rng, pool)
+        print(f"phase 6: {time.perf_counter() - t0:.3f} s in all")
 
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
+        launches = sum(p["launches"][key] for p in (run, cfg2, blk))
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": kern.source, "replaces": kern.replaces,
-                        "launches": run["launches"][key],
+                        "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     s_ms, c_ms = run["config1_warm"]
     print(f"config 1 (2 genomes, w=20, k=16, warm): sketching {s_ms} ms, "
           f"comparison {c_ms} ms; {smi}")
+    print(f"config 2 (100 genomes, w=20, k=16): sketching "
+          f"{cfg2['sketching_ms']} ms, comparison {cfg2['comparison_ms']} ms; "
+          f"G = {BLOCKED_GENOMES} blocked all-pairs {blk['wall_s']} s; {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

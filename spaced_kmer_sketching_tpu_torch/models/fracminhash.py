@@ -4,12 +4,18 @@ Host orchestration around the device sketch step:
 
     FASTA -> 2-bit codes (native C++) -> [device] K1 extract + hash-filter
     + row compaction -> K2/K3/K4 finish (sorted unique keys) -> Sketch
-    -> [host] sorted-merge intersections -> [host float64] containment -> ANI
+    -> all-pairs intersections -> [host float64] containment -> ANI
+
+All-pairs intersections are routed by the genome count G, as in the JAX
+package: G <= 8 with the native library takes the host sorted merge;
+8 < G <= 2048 (or G <= 8 without the native library) the device Gram
+(ops/gram.py: K5 merge, K6 scan); larger G the single-device block-cache
+schedule (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile).
 
 The counterpart of the JAX package's models/fracminhash.py for the main
 path.  Not ported yet (ROADMAP.md): streaming of eukaryote-scale files
-(module 6), fused multi-seed sketching (module 5) and the device all-pairs
-engine for G > 8 (kernels K5/K6).  The TPU upload cache is left behind.
+(module 6) and fused multi-seed sketching (module 5).  The TPU upload
+cache is left behind.
 """
 from __future__ import annotations
 
@@ -27,13 +33,17 @@ from ..config import SketchConfig
 from ..ingest.fasta import PackedSeqs, read_fasta
 from ..observability import count as obs_count, get_logger, span
 from ..ops.cuda.extract import pack2bit_rows
+from ..ops.gram import LANES, _guard_words, gram_all_pairs_ondevice
 from ..ops.sketch import finish_words, sketch_batch_packed_dyn
+from ..parallel.allpairs import blocked_all_pairs
 from ..utils import boosthash, native
 from ..utils.masks import SpacedSeedMask, spaced_seed_mask
 
 log = get_logger(__name__)
 
 _PAD_RUN = -1
+NATIVE_MAX_GENOMES = 8       # host sorted merge up to here (native library)
+ONDEVICE_MAX_GENOMES = 2048  # one device Gram up to here, then blocked
 
 
 @dataclasses.dataclass
@@ -249,29 +259,42 @@ class FracMinHashSketcher:
         return out  # type: ignore[return-value]
 
     # ---- all-pairs ANI ------------------------------------------------------------
+    def stack_sketches(self, sketches: Sequence[Sketch]) -> torch.Tensor:
+        """Sketches -> (G, cap, kw) int32 keys on the sketcher's device,
+        all-ones padded past each count, cap the power of two >= 128 that
+        holds the largest (the JAX method also returns the counts; the
+        padding marks them).  Only the kw = _guard_words(2 * window) low
+        key words travel: canonical keys have no bits at or above
+        2 * window, and the guard word keeps sentinel detection exact."""
+        kw = _guard_words(2 * self.config.window)
+        cap = max(LANES, _next_pow2(max([s.count for s in sketches] or [1])))
+        keys = np.full((len(sketches), cap, kw), 0xFFFFFFFF, dtype=np.uint32)
+        for i, s in enumerate(sketches):
+            keys[i, :s.count] = s.keys[:, :kw]
+        return torch.from_numpy(keys.view(np.int32)).to(self.device)
+
     def all_pairs_intersections(self, sketches: Sequence[Sketch]) -> np.ndarray:
         """(G, G) intersection counts; the diagonal holds the sketch sizes.
-        G <= 8 runs the native sorted merge on the downloaded sketches, as
-        the JAX package does; larger collections need the device all-pairs
-        kernels K5/K6, which are not ported yet."""
+        G <= 8 with the native library: the native sorted merge on the
+        downloaded sketches.  Otherwise on the sketcher's device
+        (stack_sketches): the Gram engine up to ONDEVICE_MAX_GENOMES, the
+        blocked block-cache schedule above."""
         g = len(sketches)
-        if g > 8:
-            raise NotImplementedError(
-                f"all-pairs over {g} > 8 genomes needs the device Gram "
-                "kernels K5 (merge_sorted_runs) and K6 (gram_tile_scan_fused)"
-                ", which the PyTorch port does not have yet (ROADMAP.md)")
-        if not native.available():
-            raise RuntimeError("the native library (native/sketchlib.cpp) is "
-                               "needed for host intersections; g++ could "
-                               "not build it")
-        u64s = [s.keys_u64() for s in sketches]
-        out = np.zeros((g, g), np.int32)
-        for i in range(g):
-            out[i, i] = sketches[i].count
-            for j in range(i + 1, g):
-                out[i, j] = out[j, i] = native.intersect_sorted(
-                    u64s[i], u64s[j])
-        return out
+        if g <= NATIVE_MAX_GENOMES and native.available():
+            u64s = [s.keys_u64() for s in sketches]
+            out = np.zeros((g, g), np.int32)
+            for i in range(g):
+                out[i, i] = sketches[i].count
+                for j in range(i + 1, g):
+                    out[i, j] = out[j, i] = native.intersect_sorted(
+                        u64s[i], u64s[j])
+            return out
+        keys = self.stack_sketches(sketches)
+        key_bits = 2 * self.config.window
+        if g <= ONDEVICE_MAX_GENOMES:
+            return gram_all_pairs_ondevice(keys,
+                                           key_bits=key_bits).cpu().numpy()
+        return blocked_all_pairs(keys, key_bits=key_bits)
 
     def ani_from_intersections(self, inter: np.ndarray,
                                counts_first: np.ndarray) -> np.ndarray:
@@ -280,3 +303,7 @@ class FracMinHashSketcher:
         positions (mask.count()/2, src/kmer-sketching.cpp:164)."""
         c = containment(inter, counts_first)
         return binomial_estimator(c, self.mask.care_positions)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(n, 1))))

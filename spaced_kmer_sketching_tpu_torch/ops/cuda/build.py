@@ -1,10 +1,14 @@
 """Build and bind the hand-written Hopper kernels (csrc/*.cu).
 
 All CUDA sources compile with nvcc, at first use, into ONE shared library
-with a plain C interface that ctypes loads:
+with a plain C interface that ctypes loads.  Each source compiles to an
+object in its own nvcc process, all started together, and one more nvcc
+links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o _build/libsks_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
+         _build/libsks_kernels-<hash>.so *.o
 
 No PyTorch header is compiled, so a cold build takes seconds.  The library
 name carries a hash of every source's content, so an edited source is
@@ -33,8 +37,9 @@ import torch
 from ...utils.native import BUILD_DIR
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -63,6 +68,15 @@ KERNELS = {
     "K4": Kernel("bitonic_sort", "spaced_kmer_sketching_tpu_torch/csrc/"
                  "sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                  "sort.py:110"),
+    "K5": Kernel("merge_sorted_runs", "spaced_kmer_sketching_tpu_torch/csrc/"
+                 "sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                 "sort.py:477"),
+    "K6": Kernel("gram_tile_scan", "spaced_kmer_sketching_tpu_torch/csrc/"
+                 "gram_tiles.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                 "gram_tiles.py:275"),
+    "K10": Kernel("merge_pair_streams", "spaced_kmer_sketching_tpu_torch/"
+                  "csrc/sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                  "sort.py:432"),
 }
 
 
@@ -93,26 +107,45 @@ def _nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless a library of the same sources exists."""
+    """Compile csrc/*.cu unless a library of the same sources exists: one
+    nvcc per source, all at once, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     cus, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(p) for p in cus]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, p.stem + ".o") for p in cus]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(cus, objs)]
+        failed = []
+        for p, proc in zip(cus, procs):
+            out, _ = proc.communicate()
+            log.append(f"== {p.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{p.name} ({proc.returncode})")
+        if not failed:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp,
+                                      *objs], capture_output=True, text=True)
+                log.append(f"== link\n{res.stdout}{res.stderr}")
+                if res.returncode != 0:
+                    failed.append(f"link ({res.returncode})")
+                else:
+                    os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                           + "".join(log))
     return so
 
 
@@ -128,6 +161,12 @@ def _declare(lib) -> None:
     lib.sks_compact_global.argtypes = [p, i, i, i64, p, p]
     lib.sks_sort_rows.restype = i
     lib.sks_sort_rows.argtypes = [p, p, i, i, i64, p]
+    lib.sks_merge_runs.restype = i
+    lib.sks_merge_runs.argtypes = [p, p, i, i64, i64, p]
+    lib.sks_merge_pair.restype = i
+    lib.sks_merge_pair.argtypes = [p, p, p, i, i64, p]
+    lib.sks_gram_tiles.restype = i
+    lib.sks_gram_tiles.argtypes = [p, i, i64, i, i, i, i64, p, p]
 
 
 def lib():

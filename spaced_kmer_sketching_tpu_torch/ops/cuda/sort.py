@@ -1,9 +1,14 @@
-"""K4: batched lexicographic ascending sort of multi-word keys (csrc/sort.cu).
+"""K4 sort, K5 and K10 merges of multi-word keys (csrc/sort.cu).
 
-Sorts each genome row of stacked planes (kw, G, N) int32 holding u32 words,
-word kw-1 most significant, N a power of two >= 1024; all-ones sentinels
-sort last.  The JAX entry is bitonic_sort_128 on (N, W) keys, batched by
-the finish's vmap.
+K4 sorts each genome row of stacked planes (kw, G, N) int32 holding u32
+words, word kw-1 most significant, N a power of two >= 1024; all-ones
+sentinels sort last.  The JAX entry is bitonic_sort_128 on (N, W) keys,
+batched by the finish's vmap.
+
+K5 (merge_sorted_runs) and K10 (merge_pair_streams) merge ascending packed
+(key, gid) streams of pw <= 5 planes, laid out as the JAX package's lists
+of (rows, 128) planes stacked into one (pw, rows, 128) int32 tensor; every
+plane is part of the key.
 """
 from __future__ import annotations
 
@@ -12,7 +17,10 @@ import torch
 from .. import u64ops
 from . import build
 
+LANES = 128
 K4 = build.KERNELS["K4"]
+K5 = build.KERNELS["K5"]
+K10 = build.KERNELS["K10"]
 
 
 def sort_rows(planes: torch.Tensor) -> torch.Tensor:
@@ -50,3 +58,80 @@ def sort_rows_plain(planes: torch.Tensor) -> torch.Tensor:
         order = torch.sort(key, dim=-1, stable=True).indices
         perm = order if perm is None else perm.gather(-1, order)
     return torch.stack([planes[q].gather(-1, perm) for q in range(kw)])
+
+
+def _check_stream(planes: torch.Tensor, name: str) -> None:
+    if planes.dim() != 3 or planes.shape[2] != LANES or \
+            not 1 <= planes.shape[0] <= 5:
+        raise ValueError(f"{name} takes (pw<=5, rows, 128) planes, got "
+                         f"{tuple(planes.shape)}")
+
+
+def _pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
+
+
+def merge_sorted_runs(planes: torch.Tensor, run_rows: int) -> torch.Tensor:
+    """planes (pw, R, 128) int32 whose consecutive run_rows-row runs are
+    each ascending -> the merged ascending stream, same shape.  The run
+    count and the run length must be powers of two.  CPU tensors take the
+    plain version; CUDA tensors launch K5."""
+    _check_stream(planes, "merge_sorted_runs")
+    r = planes.shape[1]
+    if r % run_rows or not _pow2(r // run_rows) or not _pow2(run_rows):
+        raise ValueError(f"{r} rows do not hold a power-of-two count of "
+                         f"power-of-two runs of {run_rows} rows")
+    if r == run_rows:
+        return planes
+    if planes.device.type == "cpu":
+        return merge_sorted_runs_plain(planes, run_rows)
+    dev = planes.device
+    build.require(planes, "planes", torch.int32, 3, dev)
+    out = torch.empty_like(planes)
+    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(),
+                                     planes.shape[0], r * LANES,
+                                     run_rows * LANES, build.stream_ptr(dev))
+    build.check(err, "sks_merge_runs")
+    K5.launches += 1
+    return out
+
+
+def merge_sorted_runs_plain(planes: torch.Tensor, run_rows: int
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of K5 (any device): the whole stream through
+    sort_rows_plain's stable LSD sorts.  Every valid packed value is a
+    unique (key, gid), so the merge has exactly one correct output."""
+    pw = planes.shape[0]
+    return sort_rows_plain(planes.reshape(pw, 1, -1)).reshape(planes.shape)
+
+
+def merge_pair_streams(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """Two ascending streams (pw, rows, 128) int32, rows a power of two ->
+    their merge (pw, 2 * rows, 128).  CPU tensors take the plain version;
+    CUDA tensors launch K10, which reads B reversed in its first pass."""
+    _check_stream(pa, "merge_pair_streams")
+    if pb.shape != pa.shape or not _pow2(pa.shape[1]):
+        raise ValueError(f"merge_pair_streams takes two equal streams of a "
+                         f"power-of-two row count, got {tuple(pa.shape)} "
+                         f"and {tuple(pb.shape)}")
+    if pa.device.type == "cpu" and pb.device.type == "cpu":
+        return merge_pair_streams_plain(pa, pb)
+    dev = pa.device
+    build.require(pa, "pa", torch.int32, 3, dev)
+    build.require(pb, "pb", torch.int32, 3, dev)
+    pw, rows, _ = pa.shape
+    out = torch.empty((pw, 2 * rows, LANES), dtype=torch.int32, device=dev)
+    err = build.lib().sks_merge_pair(pa.data_ptr(), pb.data_ptr(),
+                                     out.data_ptr(), pw, rows * LANES,
+                                     build.stream_ptr(dev))
+    build.check(err, "sks_merge_pair")
+    K10.launches += 1
+    return out
+
+
+def merge_pair_streams_plain(pa: torch.Tensor, pb: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of K10 (any device): both streams through
+    sort_rows_plain's stable LSD sorts."""
+    both = torch.cat([pa, pb], dim=1)
+    return merge_sorted_runs_plain(both, pa.shape[1])

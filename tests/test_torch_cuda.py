@@ -12,11 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+    FracMinHashSketcher, Sketch)
+from spaced_kmer_sketching_tpu_torch.ops import gram
 from spaced_kmer_sketching_tpu_torch.ops.cuda import build
-from spaced_kmer_sketching_tpu_torch.ops.cuda import compact, extract, sort
+from spaced_kmer_sketching_tpu_torch.ops.cuda import (compact, extract,
+                                                      gram_tiles, sort)
+from spaced_kmer_sketching_tpu_torch.ops import u64ops
 from spaced_kmer_sketching_tpu_torch.ops.sketch import (
     _k_slots_for, finish_words, sketch_batch_packed_dyn)
-from spaced_kmer_sketching_tpu_torch.utils import boosthash
+from spaced_kmer_sketching_tpu_torch.utils import boosthash, native
 from spaced_kmer_sketching_tpu_torch.utils.masks import spaced_seed_mask
 
 pytestmark = pytest.mark.cuda
@@ -88,6 +94,7 @@ def test_k4_matches_plain(dev, n, kw):
 def test_sketch_step_counts_every_kernel(dev):
     """The dyn sketch step on the GPU launches K1-K4 (tree finish shape)
     and gives the plain versions' result."""
+    step_kernels = [build.KERNELS[k] for k in ("K1", "K2", "K3", "K4")]
     rng = np.random.default_rng(3)
     g, n, window = 2, 65536, 20
     codes, rid = genome_batch(rng, g, n, [20000, 30000, 15000])
@@ -100,6 +107,97 @@ def test_sketch_step_counts_every_kernel(dev):
     build.reset_launches()
     got = sketch_batch_packed_dyn(p.to(dev), r.to(dev), mask.words_u32, salt,
                                   window, **args)
-    assert all(k.launches > 0 for k in build.KERNELS.values())
+    assert all(k.launches > 0 for k in step_kernels)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def packed_runs(dev, g, cap, key_bits, gidbits, pool, per, seed):
+    """(pw, g*cap/128, 128) packed planes of g ascending genome runs whose
+    keys come from one shared pool (long equal-key runs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kw = gram._guard_words(key_bits)
+    vals = torch.randint(0, 1 << min(key_bits, 62), (pool,), generator=gen,
+                         device=dev).unique()
+    pick = torch.rand((g, vals.numel()), generator=gen, device=dev) \
+        < per / vals.numel()
+    idx = torch.where(pick, torch.arange(vals.numel(), device=dev),
+                      vals.numel()).sort(1).values[:, :cap]
+    ext = torch.cat([vals, torch.full((1,), -1, device=dev)])[idx]
+    words = [ext & 0xFFFFFFFF, (ext >> 32) & 0xFFFFFFFF] + \
+        [torch.zeros_like(ext)] * 2
+    keys = torch.stack([torch.where(idx == vals.numel(), -1,
+                                    u64ops.as_i32(w)) for w in words[:kw]], -1)
+    gid = torch.arange(g, device=dev)[:, None].expand(g, cap)
+    planes = gram._pack_gid_planes(keys, gid, key_bits, gidbits,
+                                   gram.pack_plan(key_bits, gidbits))
+    return planes.reshape(planes.shape[0], -1, 128)
+
+
+@pytest.mark.parametrize("g,cap,key_bits", [(128, 1024, 40), (16, 8192, 40),
+                                            (128, 1024, 128),
+                                            (2048, 256, 40)])
+def test_k5_k6_match_plain(dev, g, cap, key_bits):
+    gidbits = max(1, (g - 1).bit_length())
+    runs = packed_runs(dev, g, cap, key_bits, gidbits, 3 * cap, cap // 2, g)
+    merged = sort.merge_sorted_runs(runs, cap // 128)
+    assert torch.equal(merged, sort.merge_sorted_runs_plain(runs, cap // 128))
+    gp = max(128, g)
+    assert torch.equal(gram_tiles.gram_tile_scan(merged, gidbits, gp),
+                       gram_tiles.gram_tile_scan_plain(merged, gidbits, gp))
+    for split in (128, gp - 128):
+        if 0 < split < gp:
+            assert torch.equal(
+                gram_tiles.gram_tile_scan(merged, gidbits, gp, split=split),
+                gram_tiles.gram_tile_scan_plain(merged, gidbits, gp,
+                                                split=split))
+
+
+@pytest.mark.parametrize("rows,key_bits", [(1, 40), (64, 40), (256, 128)])
+def test_k10_matches_plain(dev, rows, key_bits):
+    cap = rows * 128
+    a = sort.merge_sorted_runs_plain(
+        packed_runs(dev, 2, cap // 2, key_bits, 8, cap, cap // 3, rows), 1)
+    b = sort.merge_sorted_runs_plain(
+        packed_runs(dev, 2, cap // 2, key_bits, 8, cap, cap // 3, rows + 1),
+        1)
+    assert torch.equal(sort.merge_pair_streams(a, b),
+                       sort.merge_pair_streams_plain(a, b))
+
+
+def test_routed_all_pairs_match_native_merge(dev):
+    """The sketcher's device routes (Gram at G = 20, blocked past the
+    threshold) against the native host merge."""
+    from spaced_kmer_sketching_tpu_torch.models import fracminhash
+    rng = np.random.default_rng(4)
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    pool = np.unique(rng.integers(0, 1 << 40, 6000).astype(np.uint64))
+    sketches = []
+    for _ in range(150):
+        v = np.unique(rng.choice(pool, 1500))
+        keys = np.zeros((v.size, 4), np.uint32)
+        keys[:, 0] = (v & 0xFFFFFFFF).astype(np.uint32)
+        keys[:, 1] = (v >> np.uint64(32)).astype(np.uint32)
+        sketches.append(Sketch(keys=keys, count=v.size, window=20,
+                               mask=sk.mask))
+    u64 = [s.keys_u64() for s in sketches]
+
+    def check(out, idx):
+        for a in idx:
+            for b in idx:
+                want = sketches[a].count if a == b else \
+                    native.intersect_sorted(u64[a], u64[b])
+                assert out[a, b] == want
+
+    build.reset_launches()
+    check(sk.all_pairs_intersections(sketches[:20]), range(20))
+    assert build.KERNELS["K5"].launches and build.KERNELS["K6"].launches
+    old = fracminhash.ONDEVICE_MAX_GENOMES
+    fracminhash.ONDEVICE_MAX_GENOMES = 100
+    try:
+        out = sk.all_pairs_intersections(sketches)
+    finally:
+        fracminhash.ONDEVICE_MAX_GENOMES = old
+    assert build.KERNELS["K10"].launches
+    check(out, list(range(0, 150, 7)) + [127, 128, 149])

@@ -224,11 +224,49 @@ def test_all_pairs_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_more_than_8_genomes_needs_k5_k6():
+def related_genomes(seed, g):
+    """g genomes related as a collection is: substituted copies (0-5%) of
+    one 6-kb ancestor, two runs each."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, 6000).astype(np.uint8)
+    out = []
+    for i in range(g):
+        codes = base.copy()
+        hit = rng.random(codes.size) < 0.05 * i / g
+        codes[hit] = (codes[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+        out.append((codes, np.array([2500, 3500], np.int64)))
+    return out
+
+
+def test_all_pairs_12_related_genomes_matches_jax():
+    """G = 12 takes the device Gram (plain K5/K6 on the CPU) in the port
+    and the host Gram in the JAX package: the matrices are equal."""
+    genomes = related_genomes(12, 12)
+    cfg = dict(window=12, k=8, scale=3)
+    port = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
+    got = port.all_pairs_intersections(port.sketch_packed_batch(
+        [PackedSeqs(c, lens) for c, lens in genomes]))
+    jsk = JaxSketcher(JaxConfig(**cfg))
+    want = jsk.all_pairs_intersections(jsk.sketch_packed_batch(
+        [JaxPacked(c, lens) for c, lens in genomes]))
+    np.testing.assert_array_equal(got, want)
+    assert (got > 0).all() and (got[0] < got[0, 0]).sum() > 6
+
+
+def test_more_than_8_genomes_needs_k5_k6(monkeypatch):
+    """More than 8 genomes go through the device Gram (K5, K6; their plain
+    versions on the CPU), empty sketches included; past the blocked
+    schedule's device budget the sketcher raises, naming the store-backed
+    out-of-core schedule that is not ported yet."""
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
     sk = FracMinHashSketcher(SketchConfig(window=12, k=8), device="cpu")
     empty = Sketch(keys=np.empty((0, 4), np.uint32), count=0, window=12,
                    mask=sk.mask)
-    with pytest.raises(NotImplementedError, match="K5"):
+    np.testing.assert_array_equal(sk.all_pairs_intersections([empty] * 9),
+                                  np.zeros((9, 9), np.int32))
+    monkeypatch.setattr(fracminhash, "ONDEVICE_MAX_GENOMES", 8)
+    monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 1 << 10)
+    with pytest.raises(NotImplementedError, match="out-of-core"):
         sk.all_pairs_intersections([empty] * 9)
 
 
