@@ -26,14 +26,33 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      the device Gram (K5, K6);
   6. all_pairs_intersections on 4,096 synthetic sketches of ~25,000 40-bit
      keys (capacity 32,768) drawn from 64 clade pools: the blocked
-     block-cache route (K5 per block, K10 + K6 per macro-tile).
-Every sketch of phases 3-5 must equal the native C++ scalar pipeline's
-(native/sketchlib.cpp) and every CSV value the host math on native
-intersections of those sketches; phase 6's matrix must have the counts on
-its diagonal, be symmetric, and equal native merges on every pair of two
-whole blocks and on a seeded sample of 2,000 pairs.  The kernels' launch
-counters are set to 0 before each of the paths (phases 3-4, 5, 6) and read
-after it; each kernel must have been launched by the path that uses it.
+     block-cache route (K5 per block, K10 + K6 per macro-tile);
+  7. BASELINE config 5: two synthetic chromosomes of 268.5-272 Mnt (B a
+     1.2%-substituted copy of A, each with N-gaps of 10 kb to 1 Mnt, some
+     on segment edges), FASTAs of 80-nt lines of 2^28 bytes or more, through
+     the CLI: sketch_files streams each in 17 segments (K7 per segment, the
+     finish, a K4 merge);
+  8. BASELINE config 4: (a) the CLI on 640 related FASTAs of 1.5-1.7 Mnt
+     (8 clades), which routes through the one-flow DevicePipeline (K7, the
+     finish, K5 presort per block, K10 + K6 tiles), against the two-step
+     path's CSV byte for byte; (b) DevicePipeline.all_pairs on 10,240
+     genomes of 1.55 Mnt drawn on the device (device_source).
+Phase 2 also holds K7 against its plain version at a streaming segment's
+shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
+K = 8) and with K = 512 real bounds.
+Every sketch of phases 3-5 and 7 must equal the native C++ scalar
+pipeline's (native/sketchlib.cpp) and every CSV value the host math on
+native intersections of those sketches; phase 6's matrix must have the
+counts on its diagonal, be symmetric, and equal native merges on every pair
+of two whole blocks and on a seeded sample of 2,000 pairs.  Phase 8(a)'s
+CSV must equal the two-step path's, 64 sampled sketches the native ones,
+and the pipeline's matrix among those 64 native merges of them; phase
+8(b)'s matrix must be symmetric with the counts on its
+diagonal, and 8 sampled sketches (and their pairs) must equal the native
+pipeline on their genomes' codes drawn again.  The kernels' launch counters
+are set to 0 before each of the paths (phases 3-4, 5, 6, 7, 8a, 8b) and
+read after it; each kernel must have been launched by the path that uses
+it, and K7 by phases 7, 8a and 8b.
 
 Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}), and as the LAST line
@@ -46,6 +65,7 @@ import concurrent.futures as cf
 import contextlib
 import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -60,6 +80,10 @@ TOLERANCE = 0        # integer keys and counts: every comparison is exact
 GENOMES = 8          # phase 3: the native host merge's largest G
 CONFIG2_GENOMES = 100
 BLOCKED_GENOMES = 4096
+SEGMENT = 1 << 24    # streaming segment (sketch_file_streaming's default)
+CONFIG4_FILES = 640  # 5 blocks of 128: past the pipeline's 512-genome route
+CONFIG4_GENOMES = 10240
+CONFIG4_NT = 1_550_000
 M32 = 0xFFFFFFFF
 
 
@@ -209,6 +233,64 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
         need(r["max_abs_err"] <= TOLERANCE,
              f"{name} disagrees with its plain version: {r}")
     return res
+
+
+def phase_k7(dev, rng, timer):
+    """K7 against its plain version at (a) a streaming segment's shape (G =
+    1, n = 2^25, K = 64 with 5 real bounds, rid0 = 7, vlen < body), (b) a
+    pipeline dispatch's (G = 32, n = 2^21, K = 8) and (c) K = 512 real
+    bounds (G = 4, n = 2^21).  Timed at (a)."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.ops import sketch as sk
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import extract
+    from spaced_kmer_sketching_tpu_torch.utils import boosthash
+    from spaced_kmer_sketching_tpu_torch.utils.masks import spaced_seed_mask
+
+    window, scale = 20, 200
+    mask = spaced_seed_mask(window, 16, 0)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, "modern")
+    res = {"max_abs_err": 0}
+    cases = [("a: streaming segment", 1, 1 << 25, 64, 5, 7, 3000),
+             ("b: pipeline dispatch", 32, 1 << 21, 8, 3, 0, 40000),
+             ("c: K = 512 real bounds", 4, 1 << 21, 512, 512, 2, 100)]
+    for what, g, n, k, real, rid0, short in cases:
+        body = extract.packed_body(n)
+        p = torch.randint(-2 ** 31, 2 ** 31, (g, body // 16),
+                          dtype=torch.int32, device=dev)
+        b = np.full((g, k), body, np.int32)
+        for i in range(g):
+            b[i, :real] = np.sort(rng.choice(n - short, real, replace=False))
+        bounds = torch.from_numpy(b).to(dev)
+        rid0_t = torch.full((g,), rid0, dtype=torch.int32, device=dev)
+        vlen = torch.full((g,), n - short, dtype=torch.int32, device=dev)
+        nw = n - window + 1
+        args = dict(window=window, nw=nw, scale=scale, variant="modern",
+                    k_slots=sk._k_slots_for(nw, scale, 1 << 17),
+                    out_words=sk.finish_words(window))
+
+        def kern():
+            return extract.extract_compact_raw(p, bounds, rid0_t, vlen,
+                                               mask.words_u32, salt, **args)
+
+        def plain():
+            return extract.extract_compact_raw_plain(
+                p, bounds, rid0_t, vlen, mask.words_u32, salt, **args)
+        got, want = kern(), plain()
+        e = max_abs_err(got, want)
+        res["max_abs_err"] = max(res["max_abs_err"], e)
+        kept = int(got[1].sum())
+        need(kept > 0, f"K7 {what}: nothing kept")
+        if what.startswith("a"):
+            res.update(ms=timer(kern, 20), plain_ms=timer(plain, 3))
+            print(f"K7 timing at {what}: kernel {res['ms']} ms, plain "
+                  f"{res['plain_ms']} ms")
+        print(f"K7 {what}: G={g} n={n} K={k} planes="
+              f"{tuple(got[0].shape)} kept={kept} max_abs_err={e}")
+        del got, want
+    need(res["max_abs_err"] <= TOLERANCE,
+         f"K7 disagrees with its plain version: {res}")
+    return {"K7": res}
 
 
 def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits):
@@ -640,6 +722,288 @@ def run_blocked(rng, pool) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
+# --- phase 7: BASELINE config 5 -------------------------------------------
+
+def write_chromosome(path, name, codes, gaps):
+    """codes as one FASTA record of 80-nt lines, with an N-gap of `length`
+    inserted before code `pos` for each (pos, length) of `gaps`."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pieces, prev = [], 0
+    for pos, length in gaps:
+        pieces += [acgt[codes[prev:pos]], np.full(length, ord("N"), np.uint8)]
+        prev = pos
+    pieces.append(acgt[codes[prev:]])
+    text = np.concatenate(pieces)
+    del pieces
+    full = text.size // 80 * 80
+    lines = np.full((text.size // 80, 81), ord("\n"), np.uint8)
+    lines[:, :80] = text[:full].reshape(-1, 80)
+    with open(path, "wb") as f:
+        f.write(f">{name}\n".encode())
+        f.write(memoryview(lines).cast("B"))
+        if full < text.size:
+            f.write(text[full:].tobytes() + b"\n")
+    return str(path)
+
+
+def write_chromosomes(dirpath: pathlib.Path, rng):
+    """Config 5's two chromosomes: A of 268.5-272 Mnt (more than 16
+    segments of 2^24 codes, so 17), B a 1.2%-substituted copy; N-gaps of
+    10 kb to 1 Mnt, some exactly on a segment edge, some a few codes (less
+    than the window) before or after one."""
+    length = int(rng.integers(268_500_000, 272_000_001))
+    a = rng.integers(0, 4, length).astype(np.uint8)
+    gaps_a = [(SEGMENT, 10_000), (3 * SEGMENT + 12_345, 1_000_000),
+              (5 * SEGMENT - 7, 50_000), (9 * SEGMENT + 1, 200_000),
+              (13 * SEGMENT + 777_777, 10_000), (15 * SEGMENT + 3, 500_000)]
+    gaps_b = [(2 * SEGMENT, 20_000), (4 * SEGMENT + 999, 1_000_000),
+              (7 * SEGMENT - 1, 10_000), (11 * SEGMENT + 5_000_000, 300_000),
+              (16 * SEGMENT - 19, 75_000)]
+    paths = [write_chromosome(dirpath / "chrA.fa", "chrA", a, gaps_a)]
+    b = mutate(rng, a, 0.012)
+    del a
+    paths.append(write_chromosome(dirpath / "chrB.fa", "chrB", b, gaps_b))
+    return paths, length
+
+
+def run_config5(tmp: pathlib.Path, rng, pool) -> dict:
+    """Phase 7: BASELINE config 5 through the CLI (both files stream),
+    then its checks.  Returns its timings and launch counts."""
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    paths, length = write_chromosomes(tmp, rng)
+    sizes = [os.path.getsize(q) for q in paths]
+    print(f"phase 7 data: 2 chromosomes of {length} codes, {sizes} bytes, "
+          f"written in {time.perf_counter() - t0:.3f} s")
+    need(min(sizes) >= FracMinHashSketcher._STREAM_THRESHOLD_BYTES,
+         f"config-5 files of {sizes} bytes would not stream")
+    need(length > 16 * SEGMENT, "config 5 needs 17 segments a file")
+    captured = record_sketches()
+    streamed = []
+    orig = FracMinHashSketcher.sketch_file_streaming
+
+    def counting(self, path, *a, **kw):
+        streamed.append(path)
+        return orig(self, path, *a, **kw)
+    FracMinHashSketcher.sketch_file_streaming = counting
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = tmp / "config5.csv"
+    try:
+        _, s_ms, c_ms = run_cli([str(out), *paths, "--window", "20", "--k",
+                                 "16", "--device", "cuda"])
+    finally:
+        FracMinHashSketcher.sketch_file_streaming = orig
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"phase 7: config 5 (2 chromosomes, w=20, k=16): {wall:.3f} s "
+          f"wall, sketching {s_ms} ms, comparison {c_ms} ms; launches "
+          + json.dumps(launches))
+    need(sorted(streamed) == sorted(paths), f"streamed {streamed}")
+    need(launches["K7"] >= 34, f"K7 launched {launches['K7']} times, "
+         "expected one per segment (17 a file)")
+    for key in ("K2", "K3", "K4"):
+        need(launches[key] > 0, f"{key} was not launched by config 5")
+    t0 = time.perf_counter()
+    rows = out.read_text().splitlines()
+    need(len(captured) == 1, f"{len(captured)} config-5 experiments")
+    skc, pc, sc = captured[0]
+    inter = check_experiment(skc, pc, sc, rows[1:], {}, pool)
+    ani = float(rows[2].split(",")[2])
+    need(0.97 < ani < 1.0, f"ANI(chrA, chrB) {ani}")
+    print(f"checks: config 5's 2 streamed sketches ({sc[0].count}, "
+          f"{sc[1].count} keys, {int(inter[0, 1])} shared) equal the native "
+          f"scalar pipeline on the whole files and the CSV the host math in "
+          f"{time.perf_counter() - t0:.3f} s; ANI(chrA, chrB) = {ani}")
+    return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
+            "wall_s": wall}
+
+
+# --- phase 8: BASELINE config 4 -------------------------------------------
+
+def write_surveillance(dirpath: pathlib.Path, seed, pool, clades=8,
+                       members=CONFIG4_FILES // 8,
+                       nt=(1_500_000, 1_700_000)):
+    """Config 4's collection, sized like a Campylobacter surveillance set:
+    one ancestor, `clades` roots 3% substituted from it, `members` genomes
+    per clade 0.2-2% substituted from their root and cut to nt[0]..nt[1]
+    nt, written as write_fasta does (records, N-runs).  Each member has
+    its own generator, so the pool writes them in parallel."""
+    rng = np.random.default_rng([seed, 4])
+    ancestor = rng.integers(0, 4, nt[1]).astype(np.uint8)
+    roots = [mutate(rng, ancestor, 0.03) for _ in range(clades)]
+
+    def member(cm):
+        c, m = cm
+        r = np.random.default_rng([seed, 4, c, m])
+        length = int(r.integers(nt[0], nt[1] + 1))
+        codes = mutate(r, roots[c][:length], float(r.uniform(0.002, 0.02)))
+        name = f"clade{c}_member{m}"
+        return write_fasta(dirpath / f"{name}.fa", name, codes, r)
+    return list(pool.map(member, [(c, m) for c in range(clades)
+                                  for m in range(members)]))
+
+
+def run_config4_cli(tmp: pathlib.Path, seed, pool) -> dict:
+    """Phase 8(a): config 4's 640 files through the CLI, which must route
+    through the DevicePipeline; then the two-step path on the same files,
+    whose CSV must be the same bytes; then 64 sampled sketches against the
+    native scalar pipeline.  Returns timings and the pipeline run's launch
+    counts."""
+    from spaced_kmer_sketching_tpu_torch import driver, pipeline
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    paths = write_surveillance(tmp, seed, pool)
+    print(f"phase 8a data: {len(paths)} related FASTAs written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    args = ["--window", "20", "--k", "16", "--device", "cuda"]
+    results = []
+    orig = pipeline.DevicePipeline.all_pairs
+
+    def recording(self, *a, **kw):
+        results.append(orig(self, *a, **kw))
+        return results[-1]
+    pipeline.DevicePipeline.all_pairs = recording
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        _, s_ms, c_ms = run_cli([str(tmp / "pipeline.csv"), *paths, *args])
+    finally:
+        pipeline.DevicePipeline.all_pairs = orig
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    need(len(results) == 1, "the CLI did not route through DevicePipeline")
+    ph = results[0].phases
+    print(f"phase 8a: config 4 CLI ({len(paths)} genomes, w=20, k=16) through "
+          f"DevicePipeline: {wall:.3f} s wall, sketching {s_ms} ms, "
+          f"comparison {c_ms} ms; phases " + json.dumps(ph)
+          + "; launches " + json.dumps(launches))
+    for key in ("K7", "K2", "K3", "K4", "K5", "K6", "K10"):
+        need(launches[key] > 0, f"{key} was not launched by config 4's CLI")
+    need(launches["K1"] == 0, "the pipeline launched K1")
+
+    captured = record_sketches()
+    routing = driver._use_device_pipeline
+    driver._use_device_pipeline = lambda sk, f: False
+    t0 = time.perf_counter()
+    try:
+        _, s2_ms, c2_ms = run_cli([str(tmp / "two_step.csv"), *paths, *args])
+    finally:
+        driver._use_device_pipeline = routing
+    wall2 = time.perf_counter() - t0
+    print(f"phase 8a: the same files through the two-step path: {wall2:.3f} "
+          f"s wall, sketching {s2_ms} ms, comparison {c2_ms} ms")
+    t0 = time.perf_counter()
+    want = (tmp / "two_step.csv").read_bytes()
+    need((tmp / "pipeline.csv").read_bytes() == want,
+         "config 4: the pipeline's CSV differs from the two-step path's")
+    sk, pc, sc = captured[0]
+    need(np.array_equal(results[0].counts, [x.count for x in sc]),
+         "config 4: pipeline counts != two-step sketch counts")
+    sample = np.random.default_rng([seed, 64]).choice(len(paths), 64,
+                                                      replace=False)
+    cfg = sk.config
+
+    def scalar(i):
+        pk = read_fasta(paths[i])
+        return native.sketch_codes(pk.codes, pk.run_lens, sk.mask.lo,
+                                   sk.mask.hi, cfg.window, sk.salt, cfg.scale,
+                                   cfg.hash_variant == "legacy")
+    u64 = dict(zip(sample, pool.map(scalar, sample)))
+    for i in sample:
+        need(np.array_equal(sc[i].keys_u64(), u64[i]),
+             f"config 4 sketch {paths[i]} != native scalar pipeline")
+    # the pipeline's own matrix against native merges of native sketches,
+    # independent of the two-step path's kernels
+    inter = results[0].inter
+    for i in sample:
+        need(int(inter[i, i]) == len(u64[i]),
+             f"config 4 pipeline count of {paths[i]} != native")
+        for j in sample:
+            if i < j:
+                need(int(inter[i, j]) == int(inter[j, i])
+                     == native.intersect_sorted(u64[i], u64[j]),
+                     f"config 4 pipeline pair ({i}, {j}) != native merge")
+    rows = want.count(b"\n") - 1
+    print(f"checks: config 4's CLI CSV ({rows} rows) is byte-identical to "
+          f"the two-step path's, counts equal, 64 sampled sketches equal the "
+          f"native scalar pipeline and the pipeline's 4,096 entries among "
+          f"them equal native merges, in {time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
+            "wall_s": wall, "two_step_ms": (s2_ms, c2_ms)}
+
+
+def run_config4_device(seed, pool) -> dict:
+    """Phase 8(b): DevicePipeline.all_pairs on CONFIG4_GENOMES genomes of
+    CONFIG4_NT codes drawn on the device, then its checks: symmetry, the
+    counts on the diagonal, and 8 sampled sketches and their pairs against
+    the native pipeline on the codes drawn again."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.pipeline import (DevicePipeline,
+                                                          device_source)
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    g, n = CONFIG4_GENOMES, CONFIG4_NT
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    pipe = DevicePipeline(sk)
+    src = device_source(g, n, seed=seed, device="cuda")
+    verify = sorted(int(i) for i in np.random.default_rng([seed, 8]).choice(
+        g, 8, replace=False))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = pipe.all_pairs(src, g, n, verify_ids=verify)
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    print(f"phase 8b: DevicePipeline.all_pairs, {g} device genomes of {n} "
+          f"codes: {wall:.3f} s wall; phases " + json.dumps(res.phases)
+          + f"; cache width {res.cache_cap}; launches "
+          + json.dumps(launches))
+    for key in ("K7", "K5", "K6", "K10"):
+        need(launches[key] > 0, f"{key} was not launched by phase 8b")
+
+    t0 = time.perf_counter()
+    out = res.inter
+    need(out.shape == (g, g), f"matrix shape {out.shape}")
+    need(np.array_equal(np.diag(out), res.counts), "diagonal != counts")
+    need(np.array_equal(out, out.T), "matrix not symmetric")
+    need(res.counts.min() > 0, "an empty sketch")
+    shifts = 2 * np.arange(16, dtype=np.uint32)
+
+    def scalar(i):
+        s0 = i // pipe.dispatch * pipe.dispatch
+        words = src(s0, min(g, s0 + pipe.dispatch)).p[i - s0]
+        w = words.cpu().numpy().view(np.uint32)
+        codes = ((w[:, None] >> shifts) & 3).reshape(-1)[:n].astype(np.uint8)
+        return native.sketch_codes(codes, np.array([n], np.int64), sk.mask.lo,
+                                   sk.mask.hi, 20, sk.salt, sk.config.scale,
+                                   False)
+    u64 = dict(zip(verify, map(scalar, verify)))
+    torch.cuda.synchronize()
+    for i in verify:
+        need(np.array_equal(res.sample_keys[i], u64[i]),
+             f"phase 8b: genome {i}'s sketch != native scalar pipeline")
+        for j in verify:
+            want = res.counts[i] if i == j else native.intersect_sorted(
+                u64[i], u64[j])
+            need(int(out[i, j]) == int(want), f"phase 8b pair ({i}, {j})")
+    print(f"checks: diagonal, symmetry, 8 sampled sketches {verify} and their "
+          f"64 pairs equal the native pipeline in "
+          f"{time.perf_counter() - t0:.3f} s; counts "
+          f"{int(res.counts.min())}-{int(res.counts.max())}")
+    return {"launches": launches, "wall_s": wall, "phases": res.phases}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -679,7 +1043,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     kres = phase_kernels(dev, rng, time_ms)
     kres.update(phase_gram_kernels(dev, time_ms, args.seed))
-    print(f"phase 2: K1-K6 and K10 bit-exact vs plain in "
+    kres.update(phase_k7(dev, rng, time_ms))
+    print(f"phase 2: K1-K7 and K10 bit-exact vs plain in "
           f"{time.perf_counter() - t0:.3f} s")
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -703,11 +1068,23 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         blk = run_blocked(rng, pool)
         print(f"phase 6: {time.perf_counter() - t0:.3f} s in all")
+        # phase 7: BASELINE config 5, streamed
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cfg5 = run_config5(pathlib.Path(tmp), rng, pool)
+        print(f"phase 7: {time.perf_counter() - t0:.3f} s in all")
+        # phase 8: BASELINE config 4, the one-flow device pipeline
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cfg4 = run_config4_cli(pathlib.Path(tmp), args.seed, pool)
+        cfg4b = run_config4_device(args.seed, pool)
+        print(f"phase 8: {time.perf_counter() - t0:.3f} s in all")
 
+    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
-        launches = sum(p["launches"][key] for p in (run, cfg2, blk))
+        launches = sum(p["launches"][key] for p in paths)
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": kern.source, "replaces": kern.replaces,
                         "launches": launches,
@@ -720,6 +1097,15 @@ def main(argv=None) -> int:
     print(f"config 2 (100 genomes, w=20, k=16): sketching "
           f"{cfg2['sketching_ms']} ms, comparison {cfg2['comparison_ms']} ms; "
           f"G = {BLOCKED_GENOMES} blocked all-pairs {blk['wall_s']} s; {smi}")
+    print(f"config 5 (2 chromosomes, streamed, w=20, k=16): sketching "
+          f"{cfg5['sketching_ms']} ms, comparison {cfg5['comparison_ms']} ms; "
+          f"{smi}")
+    print(f"config 4 ({CONFIG4_FILES} files through the pipeline CLI): "
+          f"sketching {cfg4['sketching_ms']} ms, comparison "
+          f"{cfg4['comparison_ms']} ms (two-step path: sketching "
+          f"{cfg4['two_step_ms'][0]} ms, comparison {cfg4['two_step_ms'][1]} "
+          f"ms); G = {CONFIG4_GENOMES} device-source pipeline "
+          f"{cfg4b['wall_s']} s; {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
-// K1: fused spaced-seed extract + boost hash + FracMinHash filter +
-// per-row compaction.
+// K1 and K7: fused spaced-seed extract + boost hash + FracMinHash filter +
+// per-row compaction, one kernel with two sources of run ids.
 //
 // Replaces spaced_kmer_sketching_tpu/ops/pallas/extract.py::_compact_kernel
-// (entry extract_compact_windows_prepacked, body _extract_block_packed,
-// epilogue _compact_epilogue), ported by its contract, not its Mosaic
+// (K1: entry extract_compact_windows_prepacked, body _extract_block_packed,
+// epilogue _compact_epilogue) and ::_compact_raw_kernel (K7: entry
+// extract_compact_windows_raw), ported by their contract, not their Mosaic
 // schedule: no 16x-repeated window-index planes, no lane/sublane rolls, no
 // MXU cumsum.  For genome g and window t:
 //   S     = the 128 bits of the 2-bit code stream from code t (code t+j at
@@ -12,8 +13,16 @@
 //   rc    = ~S & mask       (complement code 3-c == ~c, same positions);
 //   fwd   = (nucleotide-reverse of S) >> (128 - 2w), & mask;
 //   key   = fwd if fwd < rc (strictly, as 128-bit values) else rc;
-//   valid = t+w-1 < n and rid[t] == rid[t+w-1] >= 0;
+//   valid = rid(t) == rid(t+w-1) >= 0;
 //   keep  = valid and (boost_hash(key) ^ salt) % scale == 0.
+// The run ids come from one of two places:
+//   K1 (RunPlane):  an int32 plane, rid(t) = rid[g][t] for t < n, else -1;
+//   K7 (RunBounds): the genome's sorted run starts bounds[g][0..K), rid0[g]
+//                   and vlen[g]: rid(t) = rid0 + #(bounds <= t) for
+//                   0 <= t < min(vlen, n), else -1, n = 16 * packed words.
+//                   So a window is valid iff t+w-1 < min(vlen, n),
+//                   rid0 + #(bounds <= t) >= 0 and no bound lies in
+//                   (t, t+w-1].
 // Each 128-window row writes its first k_slots kept keys in window order
 // (low `out_words` words only) with all-ones fill, plus its TRUE kept
 // count, so a caller detects slot overflow exactly.  Window, mask, salt,
@@ -21,15 +30,21 @@
 // (window, k) config of a sweep.
 //
 // What bounds it on an H100: integer issue, not bytes.  A window reads
-// ~4.25 B (one int32 run id, a sixteenth of four code words) but spends a
-// few hundred integer instructions: two 64-bit bit reversals, ~10 64-bit
-// multiplies of the hash and a 64-bit modulo.  At n = 8.4M windows that is
-// ~36 MB of traffic (about 11 us at 3.35 TB/s) against ~2.5e9 instructions.
-// The design therefore keeps everything in registers: one thread per
-// window, the key and hash in native 64-bit arithmetic (the TPU kernel
-// emulated 64-bit on u32 lane pairs), neighbouring threads read the same
-// packed words (broadcast, coalesced), and the row ranking costs four
+// ~4.25 B in K1 (one int32 run id, a sixteenth of four code words; K7
+// reads no run-id plane at all) but spends a few hundred integer
+// instructions: two 64-bit bit reversals, ~10 64-bit multiplies of the
+// hash and a 64-bit modulo.  At n = 8.4M windows that is ~36 MB of traffic
+// (about 11 us at 3.35 TB/s) against ~2.5e9 instructions.  The design
+// therefore keeps everything in registers: one thread per window, the key
+// and hash in native 64-bit arithmetic (the TPU kernel emulated 64-bit on
+// u32 lane pairs), neighbouring threads read the same packed words
+// (broadcast, coalesced), and the row ranking costs four
 // __ballot_sync/__popc and one shared-memory exchange per 128 windows.
+// K7's run id is an upper-bound binary search of the genome's bounds row
+// in global memory, ~log2(K) + 2 loads a thread: the threads of a block
+// search neighbouring positions, so they read the same few cache lines
+// (L1 hits), and K has no limit (the TPU kernel kept the bounds in SMEM
+// and its caller fell back to XLA past g * K = 4096).
 #include "common.cuh"
 
 namespace sks {
@@ -83,57 +98,93 @@ __device__ __forceinline__ uint32_t key_word(uint64_t lo, uint64_t hi,
   return static_cast<uint32_t>((q & 1) ? (w >> 32) : w);
 }
 
+// K1's run ids: an int32 plane of n positions per genome.
+struct RunPlane {
+  const int32_t* rid;
+  int64_t n;
+};
+
+// K7's run ids: k sorted run starts per genome, the id of the run open at
+// position 0, the genome's code count, and the packed positions n.
+struct RunBounds {
+  const int32_t* bounds;
+  int k;
+  const int32_t* rid0;
+  const int32_t* vlen;
+  int64_t n;
+};
+
+__device__ __forceinline__ bool window_valid(const RunPlane& s, int64_t g,
+                                             int64_t t, int64_t last) {
+  if (last >= s.n) return false;
+  const int32_t* rg = s.rid + g * s.n;
+  const int32_t ra = rg[t];
+  return ra >= 0 && ra == rg[last];
+}
+
+__device__ __forceinline__ bool window_valid(const RunBounds& s, int64_t g,
+                                             int64_t t, int64_t last) {
+  if (last >= s.n || last >= s.vlen[g]) return false;
+  const int32_t* bg = s.bounds + g * s.k;
+  int lo = 0, hi = s.k;  // upper bound: lo = #(bounds <= t)
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (bg[mid] <= t) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return s.rid0[g] + lo >= 0 && (lo == s.k || bg[lo] > last);
+}
+
 // grid (rows, G), block 128: one thread per window of one 128-window row
+template <class Runs>
 __global__ void __launch_bounds__(LANES) extract_compact_kernel(
-    const uint32_t* __restrict__ packed, int64_t packed_words,
-    const int32_t* __restrict__ rid, int64_t n, int64_t rows, int window,
-    uint64_t mask_lo, uint64_t mask_hi, uint64_t salt, uint32_t scale,
-    bool legacy, int k_slots, int out_words, uint32_t* __restrict__ out,
-    int32_t* __restrict__ rowcnt) {
+    const uint32_t* __restrict__ packed, int64_t packed_words, Runs runs,
+    int64_t rows, int window, uint64_t mask_lo, uint64_t mask_hi,
+    uint64_t salt, uint32_t scale, bool legacy, int k_slots, int out_words,
+    uint32_t* __restrict__ out, int32_t* __restrict__ rowcnt) {
   const int64_t row = blockIdx.x;
   const int64_t g = blockIdx.y;
   const int64_t t = row * LANES + threadIdx.x;
   const uint32_t* pg = packed + g * packed_words;
-  const int32_t* rg = rid + g * n;
 
   bool keep = false;
   uint64_t key_lo = 0, key_hi = 0;
   const int64_t last = t + window - 1;
-  if (last < n) {
-    const int32_t ra = rg[t];
-    if (ra >= 0 && ra == rg[last]) {
-      const int64_t a = t >> 4;
-      const int o = 2 * static_cast<int>(t & 15);
-      uint32_t v[5];
+  if (window_valid(runs, g, t, last)) {
+    const int64_t a = t >> 4;
+    const int o = 2 * static_cast<int>(t & 15);
+    uint32_t v[5];
 #pragma unroll
-      for (int i = 0; i < 5; ++i) {
-        v[i] = (a + i < packed_words) ? pg[a + i] : 0u;
-      }
-      const uint64_t w0 = v[0] | (static_cast<uint64_t>(v[1]) << 32);
-      const uint64_t w1 = v[2] | (static_cast<uint64_t>(v[3]) << 32);
-      const uint64_t w2 = v[4];
-      // o == 0 would shift by 64, which C++ leaves undefined
-      const uint64_t s_lo = o ? (w0 >> o) | (w1 << (64 - o)) : w0;
-      const uint64_t s_hi = o ? (w1 >> o) | (w2 << (64 - o)) : w1;
-      const uint64_t rc_lo = ~s_lo & mask_lo;
-      const uint64_t rc_hi = ~s_hi & mask_hi;
-      uint64_t f_lo = rev2(s_hi);
-      uint64_t f_hi = rev2(s_lo);
-      const int s = 128 - 2 * window;  // 0 (w = 64) .. 126
-      if (s >= 64) {
-        f_lo = f_hi >> (s - 64);
-        f_hi = 0;
-      } else if (s > 0) {
-        f_lo = (f_lo >> s) | (f_hi << (64 - s));
-        f_hi >>= s;
-      }
-      f_lo &= mask_lo;
-      f_hi &= mask_hi;
-      const bool fwd = f_hi < rc_hi || (f_hi == rc_hi && f_lo < rc_lo);
-      key_lo = fwd ? f_lo : rc_lo;
-      key_hi = fwd ? f_hi : rc_hi;
-      keep = (hash_bitset128(key_lo, key_hi, legacy) ^ salt) % scale == 0;
+    for (int i = 0; i < 5; ++i) {
+      v[i] = (a + i < packed_words) ? pg[a + i] : 0u;
     }
+    const uint64_t w0 = v[0] | (static_cast<uint64_t>(v[1]) << 32);
+    const uint64_t w1 = v[2] | (static_cast<uint64_t>(v[3]) << 32);
+    const uint64_t w2 = v[4];
+    // o == 0 would shift by 64, which C++ leaves undefined
+    const uint64_t s_lo = o ? (w0 >> o) | (w1 << (64 - o)) : w0;
+    const uint64_t s_hi = o ? (w1 >> o) | (w2 << (64 - o)) : w1;
+    const uint64_t rc_lo = ~s_lo & mask_lo;
+    const uint64_t rc_hi = ~s_hi & mask_hi;
+    uint64_t f_lo = rev2(s_hi);
+    uint64_t f_hi = rev2(s_lo);
+    const int s = 128 - 2 * window;  // 0 (w = 64) .. 126
+    if (s >= 64) {
+      f_lo = f_hi >> (s - 64);
+      f_hi = 0;
+    } else if (s > 0) {
+      f_lo = (f_lo >> s) | (f_hi << (64 - s));
+      f_hi >>= s;
+    }
+    f_lo &= mask_lo;
+    f_hi &= mask_hi;
+    const bool fwd = f_hi < rc_hi || (f_hi == rc_hi && f_lo < rc_lo);
+    key_lo = fwd ? f_lo : rc_lo;
+    key_hi = fwd ? f_hi : rc_hi;
+    keep = (hash_bitset128(key_lo, key_hi, legacy) ^ salt) % scale == 0;
   }
 
   const int lane = threadIdx.x & 31;
@@ -163,27 +214,58 @@ __global__ void __launch_bounds__(LANES) extract_compact_kernel(
   if (threadIdx.x == 0) rowcnt[g * rows + row] = total;
 }
 
+template <class Runs>
+int launch(const void* packed, int64_t packed_words, Runs runs, int g,
+           int64_t rows, int window, uint64_t mask_lo, uint64_t mask_hi,
+           uint64_t salt, int scale, int legacy, int k_slots, int out_words,
+           void* out, void* rowcnt, void* stream) {
+  if (g <= 0 || rows <= 0 || window < 1 || window > 64 || scale < 1 ||
+      k_slots < 1 || k_slots > LANES || out_words < 1 || out_words > 4 ||
+      g > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(g));
+  extract_compact_kernel<Runs><<<grid, LANES, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), packed_words, runs, rows, window,
+      mask_lo, mask_hi, salt, static_cast<uint32_t>(scale), legacy != 0,
+      k_slots, out_words, static_cast<uint32_t*>(out),
+      static_cast<int32_t*>(rowcnt));
+  return last_error();
+}
+
 }  // namespace
 }  // namespace sks
 
-// packed (G, packed_words) u32; rid (G, n) i32 with 16 * packed_words >= n;
-// out (out_words, G, rows * k_slots) u32; rowcnt (G, rows) i32.
+// K1.  packed (G, packed_words) u32; rid (G, n) i32 with
+// 16 * packed_words >= n; out (out_words, G, rows * k_slots) u32;
+// rowcnt (G, rows) i32.
 extern "C" int sks_extract_compact(
     const void* packed, int64_t packed_words, const void* rid, int64_t n,
     int g, int64_t rows, int window, uint64_t mask_lo, uint64_t mask_hi,
     uint64_t salt, int scale, int legacy, int k_slots, int out_words,
     void* out, void* rowcnt, void* stream) {
-  if (g <= 0 || rows <= 0 || window < 1 || window > 64 || scale < 1 ||
-      k_slots < 1 || k_slots > sks::LANES || out_words < 1 ||
-      out_words > 4 || g > 65535 || 16 * packed_words < n) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(g));
-  sks::extract_compact_kernel<<<grid, sks::LANES, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), packed_words,
-      static_cast<const int32_t*>(rid), n, rows, window, mask_lo, mask_hi,
-      salt, static_cast<uint32_t>(scale), legacy != 0, k_slots, out_words,
-      static_cast<uint32_t*>(out), static_cast<int32_t*>(rowcnt));
-  return sks::last_error();
+  if (16 * packed_words < n) return static_cast<int>(cudaErrorInvalidValue);
+  const sks::RunPlane runs{static_cast<const int32_t*>(rid), n};
+  return sks::launch(packed, packed_words, runs, g, rows, window, mask_lo,
+                     mask_hi, salt, scale, legacy, k_slots, out_words, out,
+                     rowcnt, stream);
+}
+
+// K7.  packed (G, packed_words) u32; bounds (G, k_bounds) i32, each row
+// ascending; rid0 and vlen (G,) i32; out and rowcnt as K1's.
+extern "C" int sks_extract_compact_raw(
+    const void* packed, int64_t packed_words, const void* bounds,
+    int k_bounds, const void* rid0, const void* vlen, int g, int64_t rows,
+    int window, uint64_t mask_lo, uint64_t mask_hi, uint64_t salt, int scale,
+    int legacy, int k_slots, int out_words, void* out, void* rowcnt,
+    void* stream) {
+  if (k_bounds < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const sks::RunBounds runs{static_cast<const int32_t*>(bounds), k_bounds,
+                            static_cast<const int32_t*>(rid0),
+                            static_cast<const int32_t*>(vlen),
+                            16 * packed_words};
+  return sks::launch(packed, packed_words, runs, g, rows, window, mask_lo,
+                     mask_hi, salt, scale, legacy, k_slots, out_words, out,
+                     rowcnt, stream);
 }

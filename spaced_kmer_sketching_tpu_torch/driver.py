@@ -13,12 +13,16 @@ Mirrors src/kmer-sketching.cpp:151-240, as the JAX package's driver does:
 
 `--device` (default cuda) is the counterpart of the JAX driver's
 `--platform`: `cuda` without a GPU raises, `cpu` runs the kernels' plain
-PyTorch versions.  The JAX driver's `--pairing ring`, `--store`, `--profile`
-and `--mesh` are not ported yet (ROADMAP.md).
+PyTorch versions.  Collections of more than _PIPELINE_MIN_GENOMES genomes
+on a GPU take the one-flow device pipeline (pipeline.py), as the JAX driver
+routes them; its CSV is the two-step path's byte for byte.  The JAX
+driver's `--pairing ring`, `--store`, `--profile` and `--mesh`, and its
+SKS_DEVICE_PIPELINE knob, are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Optional, Sequence
@@ -30,6 +34,29 @@ from .config import SketchConfig
 from .csvout import write_to_csv
 from .generators import all_pair_indices
 from .models.fracminhash import FracMinHashSketcher
+from .pipeline import all_pairs_from_files
+
+
+#: collections above this size route through the device pipeline (the
+#: JAX driver's threshold)
+_PIPELINE_MIN_GENOMES = 512
+
+
+def _use_device_pipeline(sk: FracMinHashSketcher, filenames) -> bool:
+    """Route a collection through the one-flow device pipeline when the
+    sketcher is on a GPU, it has more than _PIPELINE_MIN_GENOMES genomes,
+    no file needs the streaming path, and padding every genome to the
+    largest file at most doubles the device work (the pipeline shapes every
+    genome to the largest file; the two-step path buckets them by size)."""
+    if sk.device.type != "cuda" or len(filenames) <= _PIPELINE_MIN_GENOMES:
+        return False
+    try:
+        sizes = [os.path.getsize(f) for f in filenames]
+    except OSError:
+        return False         # missing files keep read_fasta's error parity
+    if max(sizes) >= sk._STREAM_THRESHOLD_BYTES:
+        return False
+    return max(sizes) * len(sizes) <= 2 * sum(sizes)
 
 
 def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
@@ -48,16 +75,27 @@ def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
     sk = sketcher or FracMinHashSketcher(cfg, device=device)
 
     t0 = time.perf_counter()
-    sketches = sk.sketch_files(filenames)
-    if sk.device.type == "cuda":
-        torch.cuda.synchronize(sk.device)
-    t1 = time.perf_counter()
+    if _use_device_pipeline(sk, filenames):
+        res = all_pairs_from_files(sk, filenames)
+        counts, inter = res.counts, res.inter
+        # the pipeline's phases interleave: ingest + sketch + presort count
+        # as sketching, the tile sweep and the host math below as comparison
+        ph = res.phases
+        sketch_s = ph["ingest_s"] + ph["sketch_s"] + ph["presort_s"]
+        t1 = time.perf_counter() - ph["allpairs_s"]
+    else:
+        sketches = sk.sketch_files(filenames)
+        if sk.device.type == "cuda":
+            torch.cuda.synchronize(sk.device)
+        t1 = time.perf_counter()
+        sketch_s = t1 - t0
+        counts = [s.count for s in sketches]
+        inter = sk.all_pairs_intersections(sketches)      # (G, G) int32
     if echo_timings:
-        print(f"Time taken for sketching = {(t1 - t0) * 1e3} ms")
+        print(f"Time taken for sketching = {sketch_s * 1e3} ms")
 
-    counts = np.array([s.count for s in sketches], dtype=np.int64)
-    g = len(sketches)
-    inter = sk.all_pairs_intersections(sketches)      # (G, G) int32
+    counts = np.asarray(counts, dtype=np.int64)
+    g = len(filenames)
     # ordered pairs row-major: pair (i, j) -> denominator |set_i|
     pairs = all_pair_indices(g)
     ani = sk.ani_from_intersections(inter.reshape(-1),

@@ -6,19 +6,25 @@ Host orchestration around the device sketch step:
     + row compaction -> K2/K3/K4 finish (sorted unique keys) -> Sketch
     -> all-pairs intersections -> [host float64] containment -> ANI
 
+Files of _STREAM_THRESHOLD_BYTES or more (eukaryote chromosomes, BASELINE
+config 5) stream instead: the native parser yields 2^24-code segments,
+each is sketched on the device from a compact upload (2-bit words and run
+starts, kernel K7) with a (window-1)-code carry, and the per-segment
+sketches are merged on the device (merge_sketches).
+
 All-pairs intersections are routed by the genome count G, as in the JAX
 package: G <= 8 with the native library takes the host sorted merge;
 8 < G <= 2048 (or G <= 8 without the native library) the device Gram
 (ops/gram.py: K5 merge, K6 scan); larger G the single-device block-cache
 schedule (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile).
 
-The counterpart of the JAX package's models/fracminhash.py for the main
-path.  Not ported yet (ROADMAP.md): streaming of eukaryote-scale files
-(module 6) and fused multi-seed sketching (module 5).  The TPU upload
-cache is left behind.
+The counterpart of the JAX package's models/fracminhash.py.  Not ported
+yet (ROADMAP.md): fused multi-seed sketching.  The TPU upload cache is
+left behind.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import dataclasses
 import math
@@ -32,9 +38,10 @@ from ..ani import binomial_estimator, containment
 from ..config import SketchConfig
 from ..ingest.fasta import PackedSeqs, read_fasta
 from ..observability import count as obs_count, get_logger, span
-from ..ops.cuda.extract import pack2bit_rows
+from ..ops.cuda.extract import pack2bit, pack2bit_rows, packed_body
 from ..ops.gram import LANES, _guard_words, gram_all_pairs_ondevice
-from ..ops.sketch import finish_words, sketch_batch_packed_dyn
+from ..ops.sketch import (finish_words, merge_sketches, sketch_batch_compact,
+                          sketch_batch_packed_dyn)
 from ..parallel.allpairs import blocked_all_pairs
 from ..utils import boosthash, native
 from ..utils.masks import SpacedSeedMask, spaced_seed_mask
@@ -99,7 +106,7 @@ def resolve_device(device) -> torch.device:
 class FracMinHashSketcher:
     """One (window, k) sketching experiment on a single device."""
 
-    _STREAM_THRESHOLD_BYTES = 1 << 28    # files past ~256M nt need streaming
+    _STREAM_THRESHOLD_BYTES = 1 << 28    # files past ~256M nt stream
 
     def __init__(self, config: SketchConfig,
                  mask: Optional[SpacedSeedMask] = None, device="cuda"):
@@ -112,6 +119,10 @@ class FracMinHashSketcher:
                                        config.hash_variant)
 
     # ---- sketching --------------------------------------------------------------
+    def _empty_sketch(self, name: str) -> Sketch:
+        return Sketch(keys=np.empty((0, 4), np.uint32), count=0,
+                      window=self.config.window, mask=self.mask, name=name)
+
     def sketch_packed(self, packed: PackedSeqs, name: str = "") -> Sketch:
         return self.sketch_packed_batch([packed], names=[name])[0]
 
@@ -176,27 +187,172 @@ class FracMinHashSketcher:
             raws[gi] = raws2[bi]
         return keys, counts, raws
 
-    def sketch_files(self, paths: Sequence[str]) -> List[Sketch]:
+    def sketch_file_streaming(self, path: str, segment_nt: int = 1 << 24,
+                              name: str = "") -> Sketch:
+        """Bounded-memory sketch of an arbitrarily large FASTA: the native
+        two-pass streaming parser yields `segment_nt`-code chunks; each
+        chunk is sketched on the device with a (window-1)-code carry, so
+        windows spanning chunk boundaries are counted exactly once, and the
+        per-chunk sketches are merged on the device (merge_sketches).
+        Equal to sketching the whole file: host memory is O(segment_nt +
+        sketch), never O(genome)."""
+        cfg = self.config
+        w = cfg.window
+        carry = np.empty(0, np.uint8)          # the last w-1 codes so far
+        carry_starts = np.empty(0, np.int64)   # run starts inside the carry
+        carry_rid0 = 0       # id of the run open at the carry's first code
+        pending = collections.deque()   # dispatched, not yet collected
+        seg_bufs = []        # device (cap_i, 4) sentinel-padded sketches
+        seg_counts = []
+
+        def drain_one():
+            keys, count = self._collect_sketch_device(pending.popleft())
+            if count:
+                seg_bufs.append(keys[0])
+                seg_counts.append(count)
+
+        for codes, run_ends, _ in native.fasta_stream(path, segment_nt):
+            # the segment is carry + chunk.  Its run starts are the carry's
+            # and the chunk's run ends (the parser ends every run it
+            # closes, at the chunk's end too, so a run closed by the
+            # previous chunk has its end in the carry); only their
+            # positions matter to which windows are valid
+            rid0 = carry_rid0
+            starts = np.concatenate([carry_starts, carry.size + run_ends])
+            seg = np.concatenate([carry, codes])
+            if w > 1:
+                cut = max(0, seg.size - (w - 1))
+                carry = seg[cut:]
+                carry_starts = starts[starts > cut] - cut
+                carry_rid0 = rid0 + int(np.searchsorted(starts, cut, "right"))
+            if seg.size < w:
+                continue
+            pending.append(self._dispatch_sketch_compact(seg, starts, rid0))
+            if len(pending) == 2:
+                # waits only for the older segment's work (its own event):
+                # the newer one runs on while the host parses onward
+                drain_one()
+        while pending:
+            drain_one()
+
+        if not seg_bufs:
+            return self._empty_sketch(name)
+        if len(seg_bufs) == 1:
+            keys, count = seg_bufs[0][:seg_counts[0]], seg_counts[0]
+        else:
+            # buffers cut to a common power of two >= every count, the
+            # segment axis padded to a power of two with empty sketches:
+            # the JAX merge's shapes
+            capm = max(256, _next_pow2(sum(seg_counts)))
+            cut = max(256, _next_pow2(max(seg_counts)))
+            s2 = _next_pow2(len(seg_bufs))
+            dev = seg_bufs[0].device
+            stack = torch.full((s2, cut, 4), -1, dtype=torch.int32,
+                               device=dev)
+            for i, buf in enumerate(seg_bufs):
+                r = min(cut, buf.shape[0])   # valid rows <= count <= cut
+                stack[i, :r] = buf[:r]
+            counts = torch.zeros(s2, dtype=torch.int32)
+            counts[:len(seg_counts)] = torch.tensor(seg_counts)
+            merged = merge_sketches(stack, counts.to(dev), capm,
+                                    kw=finish_words(w))
+            count = int(merged.count)
+            keys = merged.keys[:count]
+        return Sketch(keys=keys.cpu().numpy().view(np.uint32), count=count,
+                      window=w, mask=self.mask, name=name)
+
+    def _collect_sketch_device(self, handle):
+        """Wait for a dispatched single-genome batch but keep its keys on
+        the device (only raw_kept and the count cross to the host); an
+        overflow re-sketches this batch at the smallest power-of-two
+        capacity above its raw kept count.  Returns (keys (1, cap, 4)
+        int32 on the device, count)."""
+        res, scalars, args, make, capacity = handle
+        raw, count = (int(x) for x in scalars())
+        while raw > capacity:
+            capacity = 1 << math.ceil(math.log2(raw + 1))
+            log.info("sketch overflow: retry cap=%d", capacity)
+            res = make(capacity)(*args)
+            raw, count = int(res.raw_kept.max()), int(res.count[0])
+        return res.keys, count
+
+    def _dispatch_sketch_compact(self, codes: np.ndarray, starts: np.ndarray,
+                                 rid0: int):
+        """Compact-upload dispatch of one genome (a streaming segment): its
+        2-bit words and sorted run starts go up without blocking the host,
+        K7 derives the run ids on the device
+        (ops/sketch.sketch_batch_compact), and raw_kept and the count start
+        back at once.  Returns a handle for _collect_sketch_device."""
+        cfg = self.config
+        n = _bucket_size(codes.size + cfg.window)
+        capacity = cfg.capacity_for(codes.size - cfg.window + 1)
+        body = packed_body(n)
+        host = (pack2bit(codes, body // 16).view(np.int32)[None],
+                np.append(starts, body).astype(np.int32)[None],
+                np.array([rid0], np.int32), np.array([codes.size], np.int32))
+        args = tuple(_upload(x, self.device) for x in host)
+
+        def make(cap):
+            def step(p_, b_, rid0_, vlen_):
+                return sketch_batch_compact(
+                    p_, b_, rid0_, vlen_, self.mask.words_u32, self.salt,
+                    n=n, window=cfg.window, scale=cfg.scale,
+                    variant=cfg.hash_variant, capacity=cap)
+            return step
+
+        res = make(capacity)(*args)
+        scalars = _download_later(torch.stack([res.raw_kept.max(),
+                                               res.count[0]]))
+        return (res, scalars, args, make, capacity)
+
+    def sketch_files(self, paths: Sequence[str], max_workers: int = 8,
+                     on_error: str = "raise") -> List[Sketch]:
         """Host threads parse the files; genomes sharing a padded shape go
-        through the device in one batch.  An unreadable file raises, as in
-        the reference (a bad file kills the run).  Files of
-        _STREAM_THRESHOLD_BYTES or more need the streaming path, which is
-        not ported yet."""
-        for p in paths:
+        through the device in one batch.  Files of _STREAM_THRESHOLD_BYTES
+        or more stream (sketch_file_streaming) when the native library is
+        built, and take the whole-file path otherwise.  The output follows
+        the order of `paths`.
+
+        on_error: 'raise' mirrors the reference (a bad file kills the run);
+        'skip' turns a failed parse or stream into an empty sketch and a
+        log line."""
+        if on_error not in ("raise", "skip"):
+            raise ValueError(f"unknown on_error {on_error!r}")
+        big = set()
+        if native.available():
+            for p in paths:
+                try:
+                    if os.path.getsize(p) >= self._STREAM_THRESHOLD_BYTES:
+                        big.add(p)
+                except OSError:
+                    pass     # missing files keep read_fasta's error parity
+
+        def read(p):
             try:
-                big = os.path.getsize(p) >= self._STREAM_THRESHOLD_BYTES
-            except OSError:
-                big = False      # missing files keep read_fasta's error parity
-            if big:
-                raise NotImplementedError(
-                    f"{p}: files of {self._STREAM_THRESHOLD_BYTES} bytes or "
-                    "more need streaming ingest (ROADMAP module 6), which "
-                    "the PyTorch port does not have yet")
+                return read_fasta(p)
+            except Exception:
+                if on_error == "raise":
+                    raise
+                log.exception("skipping unreadable genome %s", p)
+                return PackedSeqs(codes=np.empty(0, np.uint8),
+                                  run_lens=np.empty(0, np.int64))
 
         with span("sketching", log):
-            with cf.ThreadPoolExecutor(max_workers=8) as ex:
-                packed = list(ex.map(read_fasta, paths))
-            return self.sketch_packed_batch(packed, names=list(paths))
+            streamed = {}
+            for p in sorted(big):
+                try:
+                    streamed[p] = self.sketch_file_streaming(p, name=p)
+                except Exception:
+                    if on_error == "raise":
+                        raise
+                    log.exception("skipping unreadable genome %s", p)
+                    streamed[p] = self._empty_sketch(p)
+            small = [p for p in paths if p not in big]
+            with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+                packed = list(ex.map(read, small))
+            sketched = iter(self.sketch_packed_batch(packed, names=small))
+            return [streamed[p] if p in big else next(sketched)
+                    for p in paths]
 
     def sketch_packed_batch(self, packed_list: Sequence[PackedSeqs],
                             names: Optional[Sequence[str]] = None
@@ -209,9 +365,7 @@ class FracMinHashSketcher:
         for i, pk in enumerate(packed_list):
             nwin = pk.total_windows(cfg.window)
             if nwin <= 0:
-                out[i] = Sketch(keys=np.empty((0, 4), np.uint32), count=0,
-                                window=cfg.window, mask=self.mask,
-                                name=names[i])
+                out[i] = self._empty_sketch(names[i])
                 continue
             n = _bucket_size(int(pk.codes.size) + cfg.window)
             groups.setdefault(n, []).append((i, pk, nwin))
@@ -307,3 +461,29 @@ class FracMinHashSketcher:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, math.ceil(math.log2(max(n, 1))))
+
+
+def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`; a CUDA copy goes from pinned
+    memory and does not block the host."""
+    t = torch.from_numpy(x)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def _download_later(t: torch.Tensor):
+    """Start copying `t` to the host; returns a function that waits for
+    the work queued up to now, and no later work, and gives the values as
+    numpy."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+    return wait

@@ -74,6 +74,9 @@ KERNELS = {
     "K6": Kernel("gram_tile_scan", "spaced_kmer_sketching_tpu_torch/csrc/"
                  "gram_tiles.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                  "gram_tiles.py:275"),
+    "K7": Kernel("extract_compact_raw", "spaced_kmer_sketching_tpu_torch/"
+                 "csrc/extract.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                 "extract.py:465"),
     "K10": Kernel("merge_pair_streams", "spaced_kmer_sketching_tpu_torch/"
                   "csrc/sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                   "sort.py:432"),
@@ -155,6 +158,9 @@ def _declare(lib) -> None:
     lib.sks_extract_compact.restype = i
     lib.sks_extract_compact.argtypes = [
         p, i64, p, i64, i, i64, i, u64, u64, u64, i, i, i, i, p, p, p]
+    lib.sks_extract_compact_raw.restype = i
+    lib.sks_extract_compact_raw.argtypes = [
+        p, i64, p, i, p, p, i, i64, i, u64, u64, u64, i, i, i, i, p, p, p]
     lib.sks_compact_rows.restype = i
     lib.sks_compact_rows.argtypes = [p, i, i64, i, p, p, p]
     lib.sks_compact_global.restype = i

@@ -1,17 +1,22 @@
-"""K1: fused extract + hash + filter + per-row compaction (csrc/extract.cu).
+"""K1 and K7: fused extract + hash + filter + per-row compaction
+(csrc/extract.cu, one kernel with two sources of run ids).
 
-Contract (the JAX entry extract_compact_windows_prepacked with the window
-as a runtime value): for every genome g and window t < rows * 128, with
-rows = ceil(nw / 32768) * 256 as the JAX kernel's block grid gives it,
-compute the canonical masked key and keep it iff the window is valid and
-(boost_hash(key) ^ salt) % scale == 0.  Each 128-window row emits its first
-k_slots kept keys in window order, all-ones fill after them, and its TRUE
-kept count.
+Contract (the JAX entries extract_compact_windows_prepacked and
+extract_compact_windows_raw, with the window as a runtime value): for every
+genome g and window t < rows * 128, with rows = ceil(nw / 32768) * 256 as
+the JAX kernels' block grid gives it, compute the canonical masked key and
+keep it iff the window is valid and (boost_hash(key) ^ salt) % scale == 0.
+Each 128-window row emits its first k_slots kept keys in window order,
+all-ones fill after them, and its TRUE kept count.
 
 The genome arrives as raw 2-bit words, 16 codes per u32, LSB first
-(utils/native.pack2bit), plus an int32 run-id plane that is -1 on padding;
-the JAX kernel's 16x-repeated window-index planes do not exist here.
-Key words travel as int32 tensors holding the u32 bits.
+(utils/native.pack2bit); the JAX kernels' 16x-repeated window-index planes
+do not exist here.  The run ids come from an int32 plane that is -1 on
+padding (K1, `extract_compact`) or from each genome's sorted run starts,
+the id of the run open at position 0 and its code count (K7,
+`extract_compact_raw`, the compact uploads of streaming segments and of
+the device pipeline).  Key words travel as int32 tensors holding the u32
+bits.
 """
 from __future__ import annotations
 
@@ -27,7 +32,9 @@ from . import build
 
 BLOCK = 32768                      # windows per JAX kernel grid step
 LANES = 128
+HALO = 1024                        # codes the JAX kernel reads past a block
 K1 = build.KERNELS["K1"]
+K7 = build.KERNELS["K7"]
 
 
 def out_rows(nw: int) -> int:
@@ -35,15 +42,29 @@ def out_rows(nw: int) -> int:
     return (nw + BLOCK - 1) // BLOCK * (BLOCK // LANES)
 
 
-def pack2bit_rows(codes: np.ndarray) -> np.ndarray:
-    """(G, n) uint8 codes 0..3, n a multiple of 16 -> (G, n // 16) uint32,
-    16 codes per word LSB-first (native when built, numpy otherwise)."""
-    g, n = codes.shape
+def packed_body(n: int) -> int:
+    """Window-independent padded code count of an n-nt compact upload (the
+    JAX package's ops/pallas/extract.packed_body): the largest window-block
+    grid plus the trailing halo, so K7's input shape matches JAX's."""
+    return (n + BLOCK - 1) // BLOCK * BLOCK + HALO
+
+
+def pack2bit(codes: np.ndarray, words: int) -> np.ndarray:
+    """(n,) uint8 codes 0..3 -> (words,) uint32, 16 codes per word
+    LSB-first, positions past n as code 0 (native when built, numpy
+    otherwise)."""
     if native.available():
-        return np.stack([native.pack2bit(row, n // 16) for row in codes])
-    c = codes.reshape(g, n // 16, 16).astype(np.uint32)
-    return (c << (2 * np.arange(16, dtype=np.uint32))).sum(
-        -1, dtype=np.uint32)
+        return native.pack2bit(codes, words)
+    c = np.zeros(16 * words, np.uint32)
+    c[:codes.size] = codes
+    return (c.reshape(words, 16) << (2 * np.arange(16, dtype=np.uint32))
+            ).sum(-1, dtype=np.uint32)
+
+
+def pack2bit_rows(codes: np.ndarray) -> np.ndarray:
+    """(G, n) uint8 codes 0..3, n a multiple of 16 -> (G, n // 16) uint32
+    (pack2bit of each row)."""
+    return np.stack([pack2bit(row, codes.shape[1] // 16) for row in codes])
 
 
 def _check(packed, run_id, window, k_slots, out_words) -> None:
@@ -53,6 +74,10 @@ def _check(packed, run_id, window, k_slots, out_words) -> None:
                          f"{tuple(run_id.shape)} must be (G, words), (G, n)")
     if 16 * packed.shape[1] < run_id.shape[1]:
         raise ValueError("packed words must cover every run-id position")
+    _check_args(window, k_slots, out_words)
+
+
+def _check_args(window, k_slots, out_words) -> None:
     if not (1 <= window <= 64 and 1 <= k_slots <= LANES
             and 1 <= out_words <= 4):
         raise ValueError(f"window {window}, k_slots {k_slots} or out_words "
@@ -131,3 +156,80 @@ def extract_compact_plain(packed, run_id, mask_words, salt, *, window: int,
     for q in range(out_words):
         out[q, dst] = u64ops.as_i32(canon[q].reshape(g, rows, LANES)[sel])
     return out.reshape(out_words, g, rows * k_slots), rowcnt
+
+
+def _check_raw(packed, bounds, rid0, vlen) -> None:
+    g = packed.shape[0]
+    if packed.dim() != 2 or bounds.dim() != 2 or bounds.shape[0] != g \
+            or tuple(rid0.shape) != (g,) or tuple(vlen.shape) != (g,):
+        raise ValueError(f"packed {tuple(packed.shape)}, bounds "
+                         f"{tuple(bounds.shape)}, rid0 {tuple(rid0.shape)} "
+                         f"and vlen {tuple(vlen.shape)} must be (G, words), "
+                         "(G, K), (G,), (G,)")
+
+
+def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
+                        rid0: torch.Tensor, vlen: torch.Tensor,
+                        mask_words: Sequence[int], salt: int, *, window: int,
+                        nw: int, scale: int, variant: str, k_slots: int,
+                        out_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's contract with the run ids given as bounds: packed (G, P) int32
+    (u32 bits; positions past a genome packed as code 0), bounds (G, K)
+    int32 sorted run starts (padding must lie at or past vlen, e.g. the
+    body length), rid0 (G,) int32 the id of the run open at position 0,
+    vlen (G,) int32 the code count.  The run id at position t is rid0 +
+    #(bounds <= t) for t < min(vlen, 16 * P), else -1.  Returns (planes
+    (out_words, G, rows * k_slots) int32, rowcnt (G, rows) int32).
+    CPU tensors take the plain version; CUDA tensors launch K7."""
+    _check_raw(packed, bounds, rid0, vlen)
+    if packed.device.type == "cpu":
+        return extract_compact_raw_plain(
+            packed, bounds, rid0, vlen, mask_words, salt, window=window,
+            nw=nw, scale=scale, variant=variant, k_slots=k_slots,
+            out_words=out_words)
+    dev = packed.device
+    build.require(packed, "packed", torch.int32, 2, dev)
+    build.require(bounds, "bounds", torch.int32, 2, dev)
+    build.require(rid0, "rid0", torch.int32, 1, dev)
+    build.require(vlen, "vlen", torch.int32, 1, dev)
+    _check_args(window, k_slots, out_words)
+    if variant not in ("modern", "legacy"):
+        raise ValueError(f"unknown hash variant {variant!r}")
+    g, pw = packed.shape
+    rows = out_rows(nw)
+    out = torch.empty((out_words, g, rows * k_slots), dtype=torch.int32,
+                      device=dev)
+    rowcnt = torch.empty((g, rows), dtype=torch.int32, device=dev)
+    m = [int(x) for x in mask_words]
+    err = build.lib().sks_extract_compact_raw(
+        packed.data_ptr(), pw, bounds.data_ptr(), bounds.shape[1],
+        rid0.data_ptr(), vlen.data_ptr(), g, rows, window,
+        m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
+        int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
+        rowcnt.data_ptr(), build.stream_ptr(dev))
+    build.check(err, "sks_extract_compact_raw")
+    K7.launches += 1
+    return out, rowcnt
+
+
+def run_ids_from_bounds(bounds: torch.Tensor, rid0: torch.Tensor,
+                        vlen: torch.Tensor, n: int) -> torch.Tensor:
+    """(G, n) int32 run-id plane of K7's inputs: rid0 + #(bounds <= t) for
+    t < vlen, else -1 (the expansion of the JAX sketch_batch_compact)."""
+    g = bounds.shape[0]
+    pos = torch.arange(n, device=bounds.device).expand(g, n).contiguous()
+    r = rid0.long()[:, None] + torch.searchsorted(
+        bounds.long().contiguous(), pos, right=True)
+    return torch.where(pos < vlen.long()[:, None], r, -1).to(torch.int32)
+
+
+def extract_compact_raw_plain(packed, bounds, rid0, vlen, mask_words, salt,
+                              *, window: int, nw: int, scale: int,
+                              variant: str, k_slots: int, out_words: int):
+    """Plain PyTorch version of K7 (any device): expand the bounds into a
+    run-id plane over the packed body, then K1's plain version."""
+    _check_raw(packed, bounds, rid0, vlen)
+    run_id = run_ids_from_bounds(bounds, rid0, vlen, 16 * packed.shape[1])
+    return extract_compact_plain(
+        packed, run_id, mask_words, salt, window=window, nw=nw, scale=scale,
+        variant=variant, k_slots=k_slots, out_words=out_words)

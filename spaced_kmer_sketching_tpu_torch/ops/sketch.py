@@ -2,15 +2,16 @@
 unique, on the device.
 
 The counterpart of the JAX package's ops/sketch.py, for its main path: the
-shared dynamic-window step `sketch_batch_packed_dyn` and the finish behind
-it.  A sketch is a SORTED UNIQUE array of 128-bit keys (4 u32 words)
+shared dynamic-window step `sketch_batch_packed_dyn`, the compact-upload
+step `sketch_batch_compact` (streaming segments and the device pipeline),
+the finish behind both, and `merge_sketches` (the streaming accumulator).  A sketch is a SORTED UNIQUE array of 128-bit keys (4 u32 words)
 padded to a static capacity with all-ones rows, plus a count and the
 pre-dedup kept count `raw_kept` (capacity overflow => raw_kept > capacity,
 and the caller retries).
 
 Keys travel as stacked planes (kw, G, m) of int32 holding the u32 bits; kw
 = finish_words(window) low words carry every valid key.  The kernels
-K1 (ops/cuda/extract.py), K2/K3 (ops/cuda/compact.py) and K4
+K1 and K7 (ops/cuda/extract.py), K2/K3 (ops/cuda/compact.py) and K4
 (ops/cuda/sort.py) do the work; the glue here keeps the JAX planner's
 shapes (n, nw_prog, k_slots, the compaction chain, sort_m, capacity), so
 every intermediate compares with the JAX reference and raw_kept matches.
@@ -18,6 +19,8 @@ every intermediate compares with the JAX reference and raw_kept matches.
 Where the JAX `_finish_dispatch` takes `_finish_runs` (Pallas K8) or the
 tiled `_finish_candidates` branch (K9), this port takes the sort-everything
 branch of `_finish_candidates` instead: it gives the same keys and count.
+The JAX `SKS_COMPACT_EXPAND=xla` branch of `sketch_batch_compact` is not
+ported: K7 takes every bounds width.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .cuda.compact import compact_global, compact_rows
-from .cuda.extract import extract_compact
+from .cuda.extract import extract_compact, extract_compact_raw, packed_body
 from .cuda.sort import sort_rows
 
 SENTINEL = -1                 # all-ones u32 in an int32 container
@@ -150,6 +153,30 @@ def sketch_batch_packed_dyn(packed: torch.Tensor, run_id: torch.Tensor,
     return _finish_dispatch(planes, rowcnt, k_slots, capacity, scale)
 
 
+def sketch_batch_compact(packed: torch.Tensor, bounds: torch.Tensor,
+                         rid0: torch.Tensor, vlen: torch.Tensor,
+                         mask_words: Sequence[int], salt: int, *, n: int,
+                         window: int, scale: int, variant: str,
+                         capacity: int) -> SketchBatch:
+    """The sketch step from compact uploads (the JAX sketch_batch_compact):
+    packed (G, packed_body(n)/16) int32 raw 2-bit words, bounds (G, K)
+    int32 sorted interior run starts padded with the body length, rid0
+    (G,) int32 the id of the run open at position 0, vlen (G,) int32 the
+    real code count.  The window is static here as in JAX: the kernel
+    covers nw = n - window + 1 windows, which fixes k_slots, the output
+    rows and so raw_kept."""
+    if 16 * packed.shape[1] != packed_body(n):
+        raise ValueError(f"packed has {packed.shape[1]} words, expected "
+                         f"packed_body({n}) / 16 = {packed_body(n) // 16}")
+    nw = n - window + 1
+    k_slots = _k_slots_for(nw, scale, capacity)
+    planes, rowcnt = extract_compact_raw(
+        packed, bounds, rid0, vlen, mask_words, salt, window=window, nw=nw,
+        scale=scale, variant=variant, k_slots=k_slots,
+        out_words=finish_words(window))
+    return _finish_dispatch(planes, rowcnt, k_slots, capacity, scale)
+
+
 def _finish_dispatch(planes, rowcnt, k_slots: int, capacity: int,
                      scale: int) -> SketchBatch:
     _, g, m = planes.shape
@@ -225,3 +252,27 @@ def _unique(buf, valid_total, total, overflow, capacity: int) -> SketchBatch:
     keys = _expand_keys(compact_global(bufm))
     return SketchBatch(keys=keys, count=count,
                        raw_kept=raw_kept.to(torch.int32))
+
+
+def merge_sketches(keys: torch.Tensor, counts: torch.Tensor, capacity: int,
+                   kw: int = KEY_WORDS) -> SketchBatch:
+    """Merge S sorted-unique sketches into one (the JAX merge_sketches):
+    keys (S, cap, 4) int32 (u32 bits), counts (S,) int32 -> a SketchBatch
+    of ONE sketch, keys (capacity, 4), count and raw_kept (the summed
+    counts) as 0-d tensors.  Only the kw low key words are carried (pass
+    finish_words(window) for spaced-seed keys, whose higher words are
+    zero): sort the S*cap rows (K4, padded with sentinels to a power of two
+    of at least 1024), cut or pad to capacity, adjacent-unique, close the
+    holes (K3)."""
+    s, cap = keys.shape[:2]
+    valid = (torch.arange(cap, device=keys.device)[None, :]
+             < counts[:, None]).reshape(1, s * cap)
+    planes = keys[..., :kw].reshape(1, s * cap, kw).permute(2, 0, 1)
+    planes = torch.where(valid, planes, SENTINEL)
+    total = counts.sum().reshape(1).to(torch.int32)
+    buf = _pad_to(sort_rows(_pad_to(planes, _next_pow2(max(s * cap, 1024)))),
+                  capacity)
+    overflow = torch.zeros(1, dtype=torch.bool, device=keys.device)
+    out = _unique(buf, total, total, overflow, capacity)
+    return SketchBatch(keys=out.keys[0], count=out.count[0],
+                       raw_kept=out.raw_kept[0])

@@ -1,0 +1,361 @@
+"""Device-resident end-to-end pipeline: genomes -> sketches born on the
+device -> per-block presorted (key, gid) caches -> macro-tiles -> (G, G)
+intersections.
+
+The port of the JAX package's pipeline.py for one device.  The two-step
+path (`FracMinHashSketcher.sketch_files`, then `all_pairs_intersections`)
+downloads every sketch and stacks and uploads them again; here the sketch
+step's device keys feed `ops.gram.presort_block_packed` directly.  What
+crosses the host boundary is the compact 2-bit genome uploads (ingest),
+the per-genome counts and the (G, G) matrix.  The reference's one-flow
+experiment (sketch all files -> all-pairs intersections -> ANI,
+src/kmer-sketching.cpp:151-212) at collection scale (BASELINE config 4).
+
+Flow per 128-genome block:
+
+    ingest (parse, native C++; the next batch on a worker thread)  [host]
+    -> 2-bit pack + run starts, uploaded (~0.25 B/nt)              [host]
+    -> K7 extract + FracMinHash, finish (K2, K3, K4)               [device]
+    -> live key words of the block's sketches, trimmed to its
+       largest count                                               [device]
+    -> presort_block_packed (K5)                                   [device]
+    -> pair_tile_sweep macro-tiles (K10, K6)                       [device]
+
+Each block is presorted as soon as it leaves a lookahead window of
+LOOKAHEAD blocks, so raw sketch keys wait in device memory for at most a
+few blocks.  Not ported (ROADMAP.md): `MeshDevicePipeline` (multi-GPU),
+the JAX `_tile_binner` knob, `pair_batch` (the port's tile sweep has no
+batches) and the `block` option (every caller uses 128).
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import math
+import os
+import time
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from .ingest.fasta import PackedSeqs, read_fasta
+from .models.fracminhash import FracMinHashSketcher, Sketch
+from .observability import get_logger, span
+from .ops.cuda.extract import pack2bit, packed_body
+from .ops.gram import _guard_words, pack_plan, presort_block_packed
+from .ops.sketch import sketch_batch_compact
+from .parallel.allpairs import BLOCK, pair_tile_sweep
+
+log = get_logger(__name__)
+
+LOOKAHEAD = 2        # blocks whose sketches may wait before their presort
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    """(G, G) intersection matrix + everything needed for ANI/verification."""
+    inter: np.ndarray            # (G, G) int32 |A_i ∩ A_j|
+    counts: np.ndarray           # (G,) int32 sketch sizes (ANI denominators)
+    phases: Dict[str, float]     # seconds per phase (wall; phases overlap)
+    bytes_h2d: int               # host->device payload bytes (ingest)
+    bytes_d2h: int               # device->host payload bytes (counts, matrix)
+    sample_keys: Dict[int, np.ndarray]   # gid -> (count, 2) u64 sketch keys
+    cache_cap: int = 0           # presort cache width (keys per genome)
+
+
+class _CapacityOverflow(Exception):
+    def __init__(self, capacity: int):
+        super().__init__(capacity)
+        self.capacity = capacity
+
+
+# --- genome sources ---------------------------------------------------------
+#
+# A source is `load(s0, s1) -> list[PackedSeqs] | _DevicePlanes` for genome
+# ids [s0, s1).  PackedSeqs batches are packed on the host (2-bit words)
+# and uploaded compact; _DevicePlanes carries packed planes already on the
+# device (e.g. drawn by the device generator), so ingest moves no bytes.
+
+@dataclasses.dataclass
+class _DevicePlanes:
+    p: torch.Tensor              # (g, body/16) int32 2-bit packed codes
+    bounds: torch.Tensor         # (g, K) int32 interior run starts (pad body)
+    rid0: torch.Tensor           # (g,) int32
+    valid_len: torch.Tensor      # (g,) int32
+
+
+def file_source(paths: Sequence[str], max_workers: int = 8) -> Callable:
+    """Parse FASTA files [s0, s1) with a host thread pool (the reference's
+    cilk_for-over-files ingest, src/kmer_set.cpp:124)."""
+    def load(s0: int, s1: int) -> List[PackedSeqs]:
+        with cf.ThreadPoolExecutor(max_workers=max_workers) as pool:
+            return list(pool.map(read_fasta, paths[s0:s1]))
+    return load
+
+
+def codes_source(g: int, n: int, seed: int = 0) -> Callable:
+    """Synthetic host genomes: one deterministic random run per genome."""
+    def load(s0: int, s1: int) -> List[PackedSeqs]:
+        out = []
+        for i in range(s0, s1):
+            rng = np.random.default_rng(seed * 1_000_003 + i)
+            out.append(PackedSeqs(
+                codes=rng.integers(0, 4, n).astype(np.uint8),
+                run_lens=np.array([n], np.int64)))
+        return out
+    return load
+
+
+def device_source(g: int, n: int, seed: int = 0, device="cuda") -> Callable:
+    """Genomes drawn on the device (every bit pair of a random word is a
+    valid 2-bit code), one run of n codes each: the zero-ingest source that
+    measures the device-resident path alone.  Batch [s0, s1) comes from a
+    torch.Generator on `device` seeded with (seed, s0), so a batch can be
+    drawn again to check its sketches."""
+    dev = torch.device(device)
+    words = packed_body(n) // 16
+    meta = {}          # per-batch-size run metadata, uploaded once
+
+    def load(s0: int, s1: int) -> _DevicePlanes:
+        gg = s1 - s0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed * 1_000_003 + s0)
+        p = torch.randint(-2 ** 31, 2 ** 31, (gg, words), generator=gen,
+                          dtype=torch.int32, device=dev)
+        if gg not in meta:
+            meta[gg] = (torch.full((gg, 1), 16 * words, dtype=torch.int32,
+                                   device=dev),
+                        torch.zeros(gg, dtype=torch.int32, device=dev),
+                        torch.full((gg,), n, dtype=torch.int32, device=dev))
+        bounds, rid0, vlen = meta[gg]
+        return _DevicePlanes(p=p, bounds=bounds, rid0=rid0, valid_len=vlen)
+    return load
+
+
+# --- the pipeline -----------------------------------------------------------
+
+class DevicePipeline:
+    """End-to-end FASTA/codes -> (G, G) intersections with device-resident
+    sketches on the sketcher's device.  The presort cache holds blocks of
+    allpairs.BLOCK (128) genomes, as the blocked schedule does; `dispatch`
+    genomes ride each sketch step (it and the block divide one another)."""
+
+    def __init__(self, sketcher: FracMinHashSketcher, *, dispatch: int = 128):
+        if BLOCK % dispatch and dispatch % BLOCK:
+            raise ValueError(f"dispatch {dispatch} and the block {BLOCK} "
+                             "must divide one another")
+        self.sk = sketcher
+        self.dispatch = dispatch
+
+    # -- sketch dispatch ------------------------------------------------
+    def _dispatch(self, batch, n: int, capacity: int):
+        """Enqueue the compact sketch step (K7) of one genome batch; returns
+        (SketchBatch on the device, bytes uploaded)."""
+        cfg = self.sk.config
+        dev = self.sk.device
+        if isinstance(batch, _DevicePlanes):
+            args = (batch.p, batch.bounds, batch.rid0, batch.valid_len)
+            h2d = 0
+        else:
+            body = packed_body(n)
+            g = len(batch)
+            runs_max = max(1, max(pk.run_lens.size - 1 for pk in batch))
+            k = 1 << max(3, (runs_max - 1).bit_length())
+            p = np.empty((g, body // 16), np.uint32)
+            bounds = np.full((g, k), body, np.int32)
+            meta = np.zeros((2, g), np.int32)          # rid0, vlen
+            for i, pk in enumerate(batch):
+                p[i] = pack2bit(pk.codes, body // 16)
+                starts = np.cumsum(pk.run_lens)[:-1]
+                bounds[i, :starts.size] = starts
+                meta[1, i] = pk.codes.size
+            host = (p.view(np.int32), bounds, meta[0], meta[1])
+            args = tuple(torch.from_numpy(x).to(dev) for x in host)
+            h2d = sum(x.nbytes for x in host)
+        res = sketch_batch_compact(
+            *args, self.sk.mask.words_u32, self.sk.salt, n=n,
+            window=cfg.window, scale=cfg.scale, variant=cfg.hash_variant,
+            capacity=capacity)
+        return res, h2d
+
+    # -- run --------------------------------------------------------------
+    def all_pairs(self, source: Callable, g: int, n: int, *,
+                  verify_ids: Sequence[int] = ()) -> PipelineResult:
+        """source(s0, s1) yields genomes [s0, s1); `n` is the nominal
+        (maximum) genome length shaping every sketch step.  Returns the
+        full ordered (G, G) intersection matrix (reference all-pairs incl.
+        self, src/generators.hpp:45-58).  A sketch that overflows the
+        capacity restarts the run at a larger one."""
+        cfg = self.sk.config
+        nw = n - cfg.window + 1
+        if nw <= 0:
+            raise ValueError("nominal genome length below window")
+        capacity = cfg.capacity_for(nw)
+        while True:
+            try:
+                return self._all_pairs_once(source, g, n, capacity,
+                                            set(verify_ids))
+            except _CapacityOverflow as e:
+                log.info("pipeline sketch overflow -> retry cap=%d",
+                         e.capacity)
+                capacity = e.capacity
+
+    def _all_pairs_once(self, source, g: int, n: int, capacity: int,
+                        verify_ids) -> PipelineResult:
+        cfg = self.sk.config
+        dev = self.sk.device
+        block, dispatch = BLOCK, self.dispatch
+        key_bits = min(128, 2 * cfg.window)
+        kw = min(4, _guard_words(key_bits))
+        gidbits = max(1, (2 * block - 1).bit_length())
+        pw = pack_plan(key_bits, gidbits)
+        nb = (g + block - 1) // block
+
+        phases = {"ingest_s": 0.0, "sketch_s": 0.0, "presort_s": 0.0,
+                  "allpairs_s": 0.0}
+        bytes_h2d = 0
+        bytes_d2h = 0
+        sample_keys: Dict[int, torch.Tensor] = {}
+        caches: List = [None] * nb   # per-block (pw, rows_b, 128) caches
+        counts = np.zeros(g, np.int32)
+        t_start = time.perf_counter()
+        # per OPEN block: (index, key parts, raw_kept parts, count parts)
+        pending: List = []
+
+        def finalize(b_idx, keyparts, raws_d, counts_d):
+            nonlocal bytes_d2h
+            # reading the scalars waits for this block's sketches: device
+            # time, booked under sketch_s
+            t0 = time.perf_counter()
+            raws = torch.cat(raws_d).cpu().numpy()
+            cnt = torch.cat(counts_d).cpu().numpy()
+            phases["sketch_s"] += time.perf_counter() - t0
+            bytes_d2h += raws.nbytes + cnt.nbytes
+            if int(raws.max()) > capacity:
+                raise _CapacityOverflow(
+                    1 << math.ceil(math.log2(int(raws.max()) + 1)))
+            t0 = time.perf_counter()
+            i0 = b_idx * block
+            counts[i0:i0 + cnt.shape[0]] = cnt
+            # the tile scan's work is linear in the cache width: trim each
+            # block to its own largest count (a power of two >= 128)
+            cap_b = min(capacity, max(128, 1 << int(math.ceil(math.log2(
+                max(1, int(cnt.max(initial=1))))))))
+            kb = torch.cat([p[:, :cap_b] for p in keyparts])
+            if kb.shape[0] < block:        # ragged tail: sentinel sketches
+                pad = torch.full((block - kb.shape[0], cap_b, kw), -1,
+                                 dtype=torch.int32, device=dev)
+                kb = torch.cat([kb, pad])
+            caches[b_idx] = presort_block_packed(
+                kb.contiguous(), key_bits=key_bits, gidbits=gidbits, pw=pw)
+            keyparts.clear()               # frees the raw sketch keys
+            phases["presort_s"] += time.perf_counter() - t0
+
+        # the NEXT dispatch's source batch is fetched on one worker thread
+        # while the main thread packs, uploads and enqueues the current
+        # one.  ingest_s books only the visible wait for the prefetch; the
+        # worker's own time is ingest_work_s, and overlap_eff = hidden /
+        # min(ingest_work, sketch_work).
+        ingest_work = [0.0]
+
+        def timed_source(a, b):
+            t = time.perf_counter()
+            out = source(a, b)
+            ingest_work[0] += time.perf_counter() - t
+            return out
+
+        t_span0 = time.perf_counter()
+        with span("sketching", log), \
+                cf.ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(timed_source, 0, min(g, dispatch))
+            for s0 in range(0, g, dispatch):
+                s1 = min(g, s0 + dispatch)
+                t0 = time.perf_counter()
+                batch = fut.result()
+                phases["ingest_s"] += time.perf_counter() - t0
+                if s1 < g:
+                    fut = ex.submit(timed_source, s1, min(g, s1 + dispatch))
+                t0 = time.perf_counter()
+                res, h2d = self._dispatch(batch, n, capacity)
+                bytes_h2d += h2d
+                phases["sketch_s"] += time.perf_counter() - t0
+                # route block-aligned slices into per-block pending slots
+                # (dispatch and block divide one another, so a dispatch
+                # never splits a block unevenly)
+                for off in range(0, s1 - s0, block):
+                    b_idx = (s0 + off) // block
+                    lo, hi = off, min(off + block, s1 - s0)
+                    if not pending or pending[-1][0] != b_idx:
+                        pending.append((b_idx, [], [], []))
+                    pending[-1][1].append(res.keys[lo:hi, :, :kw])
+                    pending[-1][2].append(res.raw_kept[lo:hi])
+                    pending[-1][3].append(res.count[lo:hi])
+                for i in range(s0, s1):
+                    if i in verify_ids:
+                        sample_keys[i] = res.keys[i - s0].clone()
+                # finalize blocks that left the lookahead window (complete:
+                # the NEXT block has started receiving parts)
+                while len(pending) > LOOKAHEAD + 1:
+                    finalize(*pending.pop(0))
+            while pending:
+                finalize(*pending.pop(0))
+            t0 = time.perf_counter()
+            rows_max = max(c.shape[1] for c in caches)
+            cache = torch.full((nb, pw, rows_max, 128), -1,
+                               dtype=torch.int32, device=dev)
+            for b, c in enumerate(caches):
+                # all-ones rows appended to a sorted packed stream keep it
+                # sorted, so the pad to the widest block is exact
+                cache[b, :, :c.shape[1]] = c
+            del caches
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            phases["presort_s"] += time.perf_counter() - t0
+        span_wall = time.perf_counter() - t_span0
+        phases["ingest_work_s"] = ingest_work[0]
+        hidden = max(0.0, ingest_work[0] + phases["sketch_s"] - span_wall)
+        denom = min(ingest_work[0], phases["sketch_s"])
+        phases["overlap_eff"] = round(hidden / denom, 3) if denom > 0.05 \
+            else None
+        cap_p = rows_max * 128 // block
+
+        samples = {}
+        for i, keys in sample_keys.items():
+            c = int(counts[i])
+            samples[i] = Sketch(keys=keys[:c].cpu().numpy().view(np.uint32),
+                                count=c, window=cfg.window,
+                                mask=self.sk.mask).keys_u64()
+            bytes_d2h += c * 16
+
+        with span("comparison", log):
+            t0 = time.perf_counter()
+            out = pair_tile_sweep(cache, g, gidbits=gidbits)
+            phases["allpairs_s"] = time.perf_counter() - t0
+            bytes_d2h += g * g * 4
+
+        phases["total_s"] = time.perf_counter() - t_start
+        return PipelineResult(inter=out, counts=counts, phases=phases,
+                              bytes_h2d=bytes_h2d, bytes_d2h=bytes_d2h,
+                              sample_keys=samples, cache_cap=cap_p)
+
+
+def all_pairs_from_files(sketcher: FracMinHashSketcher,
+                         paths: Sequence[str], *, dispatch: int = 32,
+                         max_workers: int = 8, mesh=None,
+                         verify_ids: Sequence[int] = ()) -> PipelineResult:
+    """One-flow FASTA files -> (G, G) intersection matrix with
+    device-resident sketches (the reference experiment's sketch+compare
+    flow, src/kmer-sketching.cpp:151-212).  The nominal genome length is
+    bounded by the largest file size (a FASTA file's code count never
+    exceeds its byte size).  `mesh` is not ported: passing one raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "all_pairs_from_files over a mesh (MeshDevicePipeline) needs the "
+            "multi-GPU slice, which the PyTorch port does not have yet "
+            "(ROADMAP.md, Queue 1: Multi-GPU)")
+    n = max(os.path.getsize(p) for p in paths)
+    n = max(n, sketcher.config.window + 1)
+    pipe = DevicePipeline(sketcher, dispatch=dispatch)
+    return pipe.all_pairs(file_source(paths, max_workers), len(paths), n,
+                          verify_ids=verify_ids)

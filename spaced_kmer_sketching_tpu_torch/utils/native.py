@@ -107,6 +107,14 @@ def _declare(lib):
     lib.skt_pack2bit.restype = None
     lib.skt_pack2bit.argtypes = [
         c.POINTER(c.c_uint8), c.c_int64, c.c_int64, c.POINTER(c.c_uint32)]
+    lib.skt_fasta_stream_open.restype = c.c_void_p
+    lib.skt_fasta_stream_open.argtypes = [c.c_char_p]
+    lib.skt_fasta_stream_next.restype = c.c_int64
+    lib.skt_fasta_stream_next.argtypes = [
+        c.c_void_p, c.POINTER(c.c_uint8), c.c_int64,
+        c.POINTER(c.c_int64), c.POINTER(c.c_int64), c.POINTER(c.c_int)]
+    lib.skt_fasta_stream_close.restype = None
+    lib.skt_fasta_stream_close.argtypes = [c.c_void_p]
 
 
 def available() -> bool:
@@ -169,6 +177,38 @@ def sketch_codes(codes: np.ndarray, run_lens: np.ndarray, mask_lo: int, mask_hi:
         if n >= 0:
             return out[:n]
         cap = -n
+
+
+def fasta_stream(path: str, chunk_nt: int):
+    """Generator over a FASTA file in bounded memory: yields
+    (codes uint8 (n,), run_ends int64 (k,), open_run bool) chunks with the
+    reference's exact record semantics (two-pass native parse; the
+    space-discard quirk is retroactive, so line structure is scanned before
+    any codes stream).  run_ends are exclusive code indices within the
+    chunk; open_run means the last run continues into the next chunk."""
+    lib = get_lib()
+    assert lib is not None
+    h = lib.skt_fasta_stream_open(str(path).encode())
+    if not h:
+        raise FileNotFoundError(f"Unable to open {path}")
+    try:
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        while True:
+            codes = np.empty(chunk_nt, dtype=np.uint8)
+            run_ends = np.empty(chunk_nt + 1, dtype=np.int64)
+            n_ends = ctypes.c_int64(0)
+            open_run = ctypes.c_int(0)
+            n = lib.skt_fasta_stream_next(
+                h, codes.ctypes.data_as(u8p), np.int64(chunk_nt),
+                run_ends.ctypes.data_as(i64p), ctypes.byref(n_ends),
+                ctypes.byref(open_run))
+            if n <= 0:
+                break
+            yield (codes[:n], run_ends[:n_ends.value].copy(),
+                   bool(open_run.value))
+    finally:
+        lib.skt_fasta_stream_close(h)
 
 
 def pack2bit(codes: np.ndarray, n_words: int) -> np.ndarray:

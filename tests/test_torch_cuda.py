@@ -201,3 +201,110 @@ def test_routed_all_pairs_match_native_merge(dev):
         fracminhash.ONDEVICE_MAX_GENOMES = old
     assert build.KERNELS["K10"].launches
     check(out, list(range(0, 150, 7)) + [127, 128, 149])
+
+
+def raw_batch(rng, g, n, k, real, rid0, short):
+    """K7 inputs: packed bodies of random codes, `real` sorted run starts
+    per genome (the rest padded with the body length), rid0, and code
+    counts `short` below n."""
+    body = extract.packed_body(n)
+    p = rng.integers(-2 ** 31, 2 ** 31, (g, body // 16), dtype=np.int64)
+    bounds = np.full((g, k), body, np.int32)
+    for i in range(g):
+        bounds[i, :real] = np.sort(rng.choice(n - short, real,
+                                              replace=False))
+    return (torch.from_numpy(p.astype(np.int32)), torch.from_numpy(bounds),
+            torch.full((g,), rid0, dtype=torch.int32),
+            torch.full((g,), n - short, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("g,n,k,real,rid0,short,window,variant", [
+    (1, 1 << 25, 64, 5, 7, 1000, 20, "modern"),     # a streaming segment
+    (32, 1 << 21, 8, 3, 0, 1000, 20, "legacy"),     # a pipeline dispatch
+    (4, 1 << 20, 512, 512, 2, 1000, 33, "modern"),  # no limit on K
+    (2, 1 << 16, 8, 8, 0, -3000, 64, "modern")])    # vlen past the body
+def test_k7_matches_plain(dev, g, n, k, real, rid0, short, window, variant):
+    rng = np.random.default_rng(n + k)
+    p, b, r0, vl = (x.to(dev) for x in raw_batch(rng, g, n, k, real, rid0,
+                                                 short))
+    mask = spaced_seed_mask(window, 16, 0)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
+    nw = n - window + 1
+    args = dict(window=window, nw=nw, scale=200, variant=variant,
+                k_slots=_k_slots_for(nw, 200, 65536),
+                out_words=finish_words(window))
+    build.reset_launches()
+    got = extract.extract_compact_raw(p, b, r0, vl, mask.words_u32, salt,
+                                      **args)
+    want = extract.extract_compact_raw_plain(p, b, r0, vl, mask.words_u32,
+                                             salt, **args)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K7"].launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+
+
+def write_genome(path, rng, length, gaps):
+    """A FASTA of one record with N-gaps of the given lengths."""
+    text = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)]
+    for ln in gaps:
+        s = int(rng.integers(0, length - ln))
+        text[s:s + ln] = ord("N")
+    lines = [text[i:i + 80].tobytes() for i in range(0, length, 80)]
+    path.write_bytes(b">g\n" + b"\n".join(lines) + b"\n")
+    return str(path)
+
+
+def native_sketch(sk, pk):
+    cfg = sk.config
+    return native.sketch_codes(pk.codes, pk.run_lens, sk.mask.lo, sk.mask.hi,
+                               cfg.window, sk.salt, cfg.scale,
+                               cfg.hash_variant == "legacy")
+
+
+def test_streaming_on_the_gpu_matches_native(dev, tmp_path):
+    """sketch_file_streaming on the card (K7 per segment, K4 merge) equals
+    the native scalar pipeline on the whole file."""
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    rng = np.random.default_rng(8)
+    path = write_genome(tmp_path / "chr.fa", rng, 300_000,
+                        [5000, 17, 40_000])
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
+                             device="cuda")
+    build.reset_launches()
+    got = sk.sketch_file_streaming(path, segment_nt=1 << 16)
+    assert build.KERNELS["K7"].launches >= 4
+    assert build.KERNELS["K4"].launches > 0
+    np.testing.assert_array_equal(got.keys_u64(),
+                                  native_sketch(sk, read_fasta(path)))
+
+
+def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
+    """all_pairs_from_files on the card (K7, K5, K10, K6) against native
+    sketches and merges; device_source gives a symmetric matrix with the
+    counts on its diagonal."""
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    from spaced_kmer_sketching_tpu_torch.pipeline import (
+        DevicePipeline, all_pairs_from_files, device_source)
+    rng = np.random.default_rng(9)
+    paths = [write_genome(tmp_path / f"g{i}.fa", rng, 150_000 + 1000 * i,
+                          [300])
+             for i in range(130)]
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
+                             device="cuda")
+    build.reset_launches()
+    res = all_pairs_from_files(sk, paths, verify_ids=[0, 129])
+    for key in ("K7", "K5", "K10", "K6"):
+        assert build.KERNELS[key].launches > 0, key
+    u64 = [native_sketch(sk, read_fasta(p)) for p in paths]
+    np.testing.assert_array_equal(res.counts, [u.shape[0] for u in u64])
+    for i in (0, 129):
+        np.testing.assert_array_equal(res.sample_keys[i], u64[i])
+    for a, b in [(0, 1), (5, 128), (127, 129), (64, 64)]:
+        want = u64[a].shape[0] if a == b else native.intersect_sorted(
+            u64[a], u64[b])
+        assert res.inter[a, b] == res.inter[b, a] == want
+    out = DevicePipeline(sk, dispatch=64).all_pairs(
+        device_source(200, 100_000, seed=1), 200, 100_000)
+    np.testing.assert_array_equal(out.inter, out.inter.T)
+    np.testing.assert_array_equal(np.diag(out.inter), out.counts)

@@ -271,12 +271,24 @@ def test_more_than_8_genomes_needs_k5_k6(monkeypatch):
 
 
 def test_streaming_size_files_are_refused(tmp_path, monkeypatch):
+    """Streaming-size files are no longer refused: sketch_files streams
+    them (sketch_file_streaming), and the sketch is the whole-file one."""
+    rng = np.random.default_rng(7)
     path = tmp_path / "big.fa"
-    path.write_text(">r\n" + "ACGT" * 100 + "\n")
-    sk = FracMinHashSketcher(SketchConfig(window=12, k=8), device="cpu")
+    path.write_text(">r\n" + "".join("ACGT"[c] for c in
+                                     rng.integers(0, 4, 3000)) + "\n")
+    sk = FracMinHashSketcher(SketchConfig(window=12, k=8, scale=5),
+                             device="cpu")
+    want, = sk.sketch_files([str(path)])
     monkeypatch.setattr(FracMinHashSketcher, "_STREAM_THRESHOLD_BYTES", 64)
-    with pytest.raises(NotImplementedError, match="module 6"):
-        sk.sketch_files([str(path)])
+    streamed = []
+    orig = sk.sketch_file_streaming
+    monkeypatch.setattr(sk, "sketch_file_streaming", lambda p, **kw: (
+        streamed.append(p), orig(p, segment_nt=1000, **kw))[1])
+    got, = sk.sketch_files([str(path)])
+    assert streamed == [str(path)]
+    assert got.count == want.count > 100
+    np.testing.assert_array_equal(got.keys, want.keys)
 
 
 def test_cuda_device_without_gpu_raises(monkeypatch):
