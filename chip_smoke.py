@@ -36,10 +36,22 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      (8 clades), which routes through the one-flow DevicePipeline (K7, the
      finish, K5 presort per block, K10 + K6 tiles), against the two-step
      path's CSV byte for byte; (b) DevicePipeline.all_pairs on 10,240
-     genomes of 1.55 Mnt drawn on the device (device_source).
+     genomes of 1.55 Mnt drawn on the device (device_source);
+  9. BASELINE config 3: 8 spaced seeds (mask seeds 0-7, w=20, k=16) over
+     each of phase 3's genomes 0 and 1 through sketch_packed_multiseed
+     (one compact upload and one K7 seed-batch launch a genome);
+ 10. (a) sketch_from_codes on genome 0 (K11, K4); (b) 16 genomes of
+     48,502 nt (phage lambda) at sketch_capacity 512, which the planner
+     sends to the _finish_runs fallback (K8, K5); (c) a 2 Mnt genome at
+     sketch_capacity 2048: the tiled _finish_candidates (K9) overflows and
+     the retry finishes.
 Phase 2 also holds K7 against its plain version at a streaming segment's
 shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
-K = 8) and with K = 512 real bounds.
+K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
+shape (8 seeds over one genome, n = 2^23): K1's against its plain version
+and 8 single-seed launches, K7's (phase 9's launch) over the compact
+upload of the same genome against its plain version and K1's output;
+K11 at n = 2^23; K8 at _finish_runs shapes and K9 at tiled shapes.
 Every sketch of phases 3-5 and 7 must equal the native C++ scalar
 pipeline's (native/sketchlib.cpp) and every CSV value the host math on
 native intersections of those sketches; phase 6's matrix must have the
@@ -49,13 +61,18 @@ CSV must equal the two-step path's, 64 sampled sketches the native ones,
 and the pipeline's matrix among those 64 native merges of them; phase
 8(b)'s matrix must be symmetric with the counts on its
 diagonal, and 8 sampled sketches (and their pairs) must equal the native
-pipeline on their genomes' codes drawn again.  The kernels' launch counters
-are set to 0 before each of the paths (phases 3-4, 5, 6, 7, 8a, 8b) and
-read after it; each kernel must have been launched by the path that uses
-it, and K7 by phases 7, 8a and 8b.
+pipeline on their genomes' codes drawn again.  Phases 9 and 10 hold every
+sketch to the native scalar pipeline (phase 9 with each seed's mask and
+salt).  The kernels' launch counters are set to 0 before each of the paths
+(phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c) and read after it; each
+kernel must have been launched by the path that uses it, and K7 by phases
+7, 8a, 8b and 9.
 
 Output: the card's name and power limit, a JSON line of per-kernel results
-({"kernels": [...]}), and as the LAST line
+({"kernels": [...]}: launches on the paths, max_abs_err, kernel, plain and
+torch.sort-yardstick times, and the bound from the kernel's bytes or, for
+K1, K7 and K11, its instructions at its timed shape, counted from the
+compiled code with cuobjdump), and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -85,6 +102,78 @@ CONFIG4_FILES = 640  # 5 blocks of 128: past the pipeline's 512-genome route
 CONFIG4_GENOMES = 10240
 CONFIG4_NT = 1_550_000
 M32 = 0xFFFFFFFF
+CONFIG3_SEEDS = 8    # phase 9: mask seeds 0..7
+LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
+# The least time the card could take (NVIDIA's published H100 SXM peaks,
+# at 700 W): bytes over the HBM rate, or instructions over the rate the
+# schedulers dispatch them.
+# The published 67 TFLOP/s of float32 is 132 SMs x 4 schedulers x 32 lanes
+# x 2 (an FMA) x 1.98 GHz.  A scheduler dispatches one warp instruction a clock
+# whatever its pipe (integer ALU, IMAD on the FMA pipe, loads, branches),
+# so no instruction stream runs faster than 67e12 / 2 thread-instructions
+# a second.  The extract kernels' instructions a window are counted from
+# their SASS (extract_op_counts).
+HBM_BYTES_PER_S = 3.35e12
+INSTRUCTIONS_PER_S = 67e12 / 2
+# Probes of csrc/extract.cu's device functions, compiled like the library
+# and read with cuobjdump: each is one thread's frame (its index, two
+# 64-bit loads, one store) around one piece of a window's work, so a
+# probe's instructions less probe_frame's are that piece's.  The window
+# (20), the hash (modern) and the key words carried (2) are fixed, as in
+# every timed launch, so the compiler keeps only the code such a window
+# runs: no other shift case, no legacy hash, no loop.
+PROBES_CU = r"""
+#include "extract.cu"
+
+#define PROBE(name)                                                         \
+  extern "C" __global__ void name(const uint64_t* q, int64_t pw,            \
+                                  uint64_t mask_lo, uint64_t mask_hi,       \
+                                  uint64_t salt, uint32_t scale,            \
+                                  uint64_t* out)
+#define PROBE_FRAME                                                         \
+  constexpr int window = 20;                                                \
+  constexpr bool legacy = false;                                            \
+  const int64_t t = blockIdx.x * 128ll + threadIdx.x;                       \
+  const sks::Seed sd{mask_lo, mask_hi, salt};                               \
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(q);                 \
+  uint64_t lo = q[2 * t], hi = q[2 * t + 1];
+
+PROBE(probe_frame) {
+  PROBE_FRAME
+  out[t] = lo ^ hi;
+}
+PROBE(probe_hash) {
+  PROBE_FRAME
+  out[t] = (sks::hash_bitset128(lo, hi, legacy) ^ sd.salt) % scale == 0;
+}
+PROBE(probe_key_hash) {
+  PROBE_FRAME
+  sks::canonical_key(p, pw, t, window, sd, lo, hi);
+  out[t] = (sks::hash_bitset128(lo, hi, legacy) ^ sd.salt) % scale == 0;
+}
+PROBE(probe_valid) {
+  PROBE_FRAME
+  const sks::RunPlane runs{reinterpret_cast<const int32_t*>(p), pw};
+  out[t] = sks::window_valid(runs, 0, t, t + window - 1) ? lo : hi;
+}
+PROBE(probe_row) {
+  PROBE_FRAME
+  const sks::CompactRows rows{reinterpret_cast<uint32_t*>(out),
+                              reinterpret_cast<int32_t*>(out) + 1, pw,
+                              static_cast<int>(scale), 2};
+  rows.store(blockIdx.y, blockIdx.x, t, (lo ^ hi) & 1, lo, hi);
+}
+PROBE(probe_emit) {
+  PROBE_FRAME
+  const sks::EmitAll all{reinterpret_cast<uint32_t*>(out),
+                         reinterpret_cast<uint8_t*>(out) + 1, pw};
+  all.store(blockIdx.y, blockIdx.x, t, (lo ^ hi) & 1, lo, hi);
+}
+"""
+PROBES = ("probe_frame", "probe_hash", "probe_key_hash", "probe_valid",
+          "probe_row", "probe_emit")
+SASS_INSTRUCTION = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
 class SmokeFailure(RuntimeError):
@@ -111,6 +200,97 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_: float, ops: float = 0.0) -> dict:
+    """bound_ms and bound_by of work that moves `bytes_` (each input read
+    once, each output written once) and executes `ops` thread-instructions."""
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INSTRUCTIONS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "operations" if o_ms > b_ms else "bytes"}
+
+
+def sass_instructions(path: pathlib.Path) -> dict:
+    """Static instruction count (NOPs left out) of every kernel in a
+    library or cubin, by its (mangled) name, from `cuobjdump -sass`."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+            continue
+        op = SASS_INSTRUCTION.search(line)
+        if name is not None and op and op.group(1) != "NOP":
+            counts[name] += 1
+    return counts
+
+
+def extract_op_counts(build_dir: pathlib.Path) -> dict:
+    """Instructions a window of the extract kernels' functions needs, from
+    the compiled probes (PROBES_CU): {"K1": (every window, every valid
+    window), "K11": (...), "sass": each probe's count}.
+
+    Every window of K1 needs its frame, the run-id test and its share of
+    the row compaction and stores (the valid and row probes, one frame);
+    a valid one also the key, the hash and the filter (the key-and-hash
+    probe less a frame).  K7's function is K1's with the run ids given as
+    bounds, which needs no per-window search (one search a warp would do),
+    so K7 takes K1's counts.  K11 computes the key at every window (the
+    key-and-hash probe less the hash probe) and stores it (the emit probe);
+    a valid window also needs the hash and the filter.  The run-id test is
+    counted on a valid window's path, which an invalid one cuts short by
+    a few instructions."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        src = pathlib.Path(tmp) / "probes.cu"
+        src.write_text(PROBES_CU)
+        cubin = src.with_suffix(".cubin")
+        subprocess.run([build._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3",
+                        "-cubin", "-I", str(build.CSRC), str(src), "-o",
+                        str(cubin)], check=True, capture_output=True)
+        sass = sass_instructions(cubin)
+    need(set(PROBES) <= set(sass), f"probe SASS functions: {sorted(sass)}")
+    c = {name[len("probe_"):]: sass[name] for name in PROBES}
+    key = c["key_hash"] - c["hash"]
+    hash_ = c["hash"] - c["frame"]
+    need(min(key, hash_, c["valid"] - c["frame"], c["row"] - c["frame"],
+             c["emit"] - c["frame"]) > 0,
+         f"probe SASS counts out of order: {c}")
+    return {"K1": (c["valid"] + c["row"] - c["frame"], key + hash_),
+            "K11": (c["valid"] + c["emit"] - c["frame"] + key, hash_),
+            "sass": c}
+
+
+def valid_windows(rid: np.ndarray, window: int) -> int:
+    """Windows of a (G, n) run-id plane whose first and last codes share a
+    run id >= 0."""
+    a, b = rid[:, :rid.shape[1] - window + 1], rid[:, window - 1:]
+    return int(((a == b) & (a >= 0)).sum())
+
+
+def extract_ops(windows: int, valid: int, counts) -> int:
+    """Instructions of an extract launch's function: every window pays
+    counts[0], a valid one also counts[1] (extract_op_counts)."""
+    return windows * counts[0] + valid * counts[1]
+
+
+def sort_key64(planes):
+    """(2, ..., N) int32 planes (u32 words, word 1 most significant) as one
+    int64 per key whose signed order is the planes' unsigned order: the
+    input of the torch.sort yardstick (library_ms)."""
+    import torch
+    hi = (planes[1] ^ torch.iinfo(torch.int32).min).long()
+    return (hi << 32) | (planes[0].long() & M32)
+
+
 def max_abs_err(got, want) -> int:
     """Largest |kernel - plain| over the outputs, as integers."""
     err = 0
@@ -124,10 +304,11 @@ def max_abs_err(got, want) -> int:
 
 # --- phase 2: each kernel against its plain version -------------------------
 
-def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
+def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
     """K1-K4 against their plain versions at the main path's shapes: n
     windows of a `length`-nt genome in three runs (G = 2), config 1's
-    capacity and scale.  Returns per-kernel max_abs_err and times."""
+    capacity and scale; `ops` from extract_op_counts.  Returns per-kernel
+    max_abs_err and times."""
     import torch
 
     from spaced_kmer_sketching_tpu_torch.config import SketchConfig
@@ -174,6 +355,10 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
               f"max_abs_err={max_abs_err(got, want)}")
         if kw == 2:
             res["K1"] = dict(ms=timer(kern, 20), plain_ms=timer(plain, 3))
+            res["K1"].update(bound(
+                nbytes(packed, run_id, *got),
+                extract_ops(g * got[1].shape[1] * 128,
+                            valid_windows(rid, window), ops["K1"])))
             k1_planes, k1_slots = got[0], k_slots
     res["K1"]["max_abs_err"] = err
 
@@ -195,7 +380,8 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
             res["K2"] = dict(
                 ms=timer(lambda: compact.compact_rows(x, k_out), 20),
                 plain_ms=timer(lambda: compact.compact_rows_plain(x, k_out),
-                                 5))
+                                 5),
+                **bound(nbytes(x) * (1 + k_out / 128)))
         planes = got[0].reshape(kw, g, srows * k_out)
     res["K2"]["max_abs_err"] = err
 
@@ -212,7 +398,8 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
     res["K3"] = dict(
         max_abs_err=err,
         ms=timer(lambda: compact.compact_global(chain_out), 20),
-        plain_ms=timer(lambda: compact.compact_global_plain(chain_out), 5))
+        plain_ms=timer(lambda: compact.compact_global_plain(chain_out), 5),
+        **bound(2 * nbytes(chain_out)))
 
     # K4 at 65,536 keys, G = 2, kw = 1..4, with duplicates and sentinels
     err = 0
@@ -225,9 +412,13 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
         err = max(err, e)
         print(f"K4 kw={kw} n=65536 G=2 max_abs_err={e}")
         if kw == 2:
+            key64 = sort_key64(z)
             res["K4"] = dict(ms=timer(lambda: sort.sort_rows(z), 20),
                              plain_ms=timer(lambda: sort.sort_rows_plain(z),
-                                              5))
+                                              5),
+                             library_ms=timer(
+                                 lambda: torch.sort(key64, dim=-1), 20),
+                             **bound(2 * nbytes(z)))
     res["K4"]["max_abs_err"] = err
     for name, r in res.items():
         need(r["max_abs_err"] <= TOLERANCE,
@@ -235,7 +426,7 @@ def phase_kernels(dev, rng, timer, n=8388608, length=5_000_000):
     return res
 
 
-def phase_k7(dev, rng, timer):
+def phase_k7(dev, rng, timer, ops):
     """K7 against its plain version at (a) a streaming segment's shape (G =
     1, n = 2^25, K = 64 with 5 real bounds, rid0 = 7, vlen < body), (b) a
     pipeline dispatch's (G = 32, n = 2^21, K = 8) and (c) K = 512 real
@@ -283,6 +474,11 @@ def phase_k7(dev, rng, timer):
         need(kept > 0, f"K7 {what}: nothing kept")
         if what.startswith("a"):
             res.update(ms=timer(kern, 20), plain_ms=timer(plain, 3))
+            starts = np.concatenate([[0], b[0, :real], [n - short]])
+            valid = g * int(np.maximum(0, np.diff(starts) - window + 1).sum())
+            res.update(bound(
+                nbytes(p, bounds, rid0_t, vlen, *got),
+                extract_ops(g * (n - short), valid, ops["K1"])))
             print(f"K7 timing at {what}: kernel {res['ms']} ms, plain "
                   f"{res['plain_ms']} ms")
         print(f"K7 {what}: G={g} n={n} K={k} planes="
@@ -291,6 +487,167 @@ def phase_k7(dev, rng, timer):
     need(res["max_abs_err"] <= TOLERANCE,
          f"K7 disagrees with its plain version: {res}")
     return {"K7": res}
+
+
+def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
+                                    length=5_000_000):
+    """The seed-batch modes at config 3's shape (8 seeds over one genome of
+    two runs, n = 2^23, w = 20): K1's (also against 8 single-seed K1
+    launches) and K7's over the same genome's compact upload (packed_body(n)
+    words, the run starts, vlen; also against K1's seed-batch output); K11
+    (one genome, n = 2^23); K8 at _finish_runs shapes (kw 2: 8 rows of 2
+    runs of 2,048, 1 row of 8 runs of 32,768) and K9 at tiled shapes (kw 2:
+    4 tiles and capacity 2,048, 16 tiles and capacity 8,192; sparse valid
+    keys), each against its plain version.  Timed at the first shape of
+    each."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.ops import sketch as sk
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import extract, sort
+    from spaced_kmer_sketching_tpu_torch.utils import boosthash
+    from spaced_kmer_sketching_tpu_torch.utils.masks import spaced_seed_mask
+
+    window, scale = 20, 200
+    codes = rng.integers(0, 4, (1, n)).astype(np.uint8)
+    rid = np.full((1, n), -1, np.int32)
+    rid[0, :length // 2] = 0                  # two records, then padding
+    rid[0, length // 2:length] = 1
+    masks = [spaced_seed_mask(window, 16, s) for s in range(CONFIG3_SEEDS)]
+    salts = [boosthash.fmh_salt(m.lo, m.hi, window, 1, "modern")
+             for m in masks]
+    mw = np.stack([m.words_u32 for m in masks])
+    c = torch.from_numpy(codes).to(dev)
+    packed = extract.pack_codes(c)
+    run_id = torch.from_numpy(rid).to(dev)
+    nw = n - window + 1
+    capacity = SketchConfig(window=window, k=16).capacity_for(
+        length - window + 1)
+    k_slots = sk._k_slots_for(nw, scale, capacity)
+    args = dict(window=window, nw=nw, scale=scale, variant="modern",
+                k_slots=k_slots, out_words=sk.finish_words(window))
+    valid = valid_windows(rid, window)
+    res = {}
+
+    def seeds():
+        return extract.extract_compact(packed, run_id, mw, salts, **args)
+
+    def singles():
+        return [extract.extract_compact(packed, run_id, mw[i], salts[i],
+                                        **args) for i in range(len(salts))]
+
+    def seeds_plain():
+        return extract.extract_compact_plain(packed, run_id, mw, salts, **args)
+    got = seeds()
+    err = max_abs_err(got, seeds_plain())
+    ones = singles()
+    err = max(err, max_abs_err(got, [torch.cat([o[0] for o in ones], dim=1),
+                                     torch.cat([o[1] for o in ones])]))
+    del ones
+    seed_ops = extract_ops(len(salts) * got[1].shape[1] * 128,
+                           len(salts) * valid, ops["K1"])
+    res["K1 seeds"] = dict(
+        max_abs_err=err, ms=timer(seeds, 10), singles_ms=timer(singles, 5),
+        plain_ms=timer(seeds_plain, 2),
+        **bound(nbytes(packed, run_id, *got), seed_ops))
+    print(f"K1 seed-batch mode: {len(salts)} seeds over one genome, n={n} "
+          f"planes={tuple(got[0].shape)} kept={int(got[1].sum())} "
+          f"max_abs_err={err}; {res['K1 seeds']['ms']} ms against "
+          f"{res['K1 seeds']['singles_ms']} ms for {len(salts)} single-seed "
+          f"launches")
+
+    # K7's seed-batch mode over the same genome's compact upload, as
+    # sketch_packed_multiseed sends it
+    body = extract.packed_body(n)
+    p7 = torch.zeros((1, body // 16), dtype=torch.int32, device=dev)
+    p7[:, :packed.shape[1]] = packed
+    bounds = torch.tensor([[length // 2, body]], dtype=torch.int32,
+                          device=dev)
+    rid0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    vlen = torch.full((1,), length, dtype=torch.int32, device=dev)
+
+    def seeds7():
+        return extract.extract_compact_raw(p7, bounds, rid0, vlen, mw, salts,
+                                           **args)
+
+    def seeds7_plain():
+        return extract.extract_compact_raw_plain(p7, bounds, rid0, vlen, mw,
+                                                 salts, **args)
+    got7 = seeds7()
+    err = max(max_abs_err(got7, seeds7_plain()), max_abs_err(got7, got))
+    res["K7 seeds"] = dict(
+        max_abs_err=err, ms=timer(seeds7, 10), plain_ms=timer(seeds7_plain, 2),
+        **bound(nbytes(p7, bounds, rid0, vlen, *got7), seed_ops))
+    print(f"K7 seed-batch mode: the same {len(salts)} seeds over the compact "
+          f"upload ({body // 16} words, bounds {bounds.tolist()}, vlen "
+          f"{length}) max_abs_err={err} (against its plain version and K1's "
+          f"seed-batch output); {res['K7 seeds']['ms']} ms")
+    del got, got7
+
+    def filt():
+        return extract.extract_filter(c, run_id, mw[0], salts[0],
+                                      window=window, scale=scale,
+                                      variant="modern")
+
+    def filt_plain():
+        return extract.extract_filter_plain(c, run_id, mw[0], salts[0],
+                                            window=window, scale=scale,
+                                            variant="modern")
+    got = filt()
+    err = max_abs_err(got, filt_plain())
+    res["K11"] = dict(
+        max_abs_err=err, ms=timer(filt, 10), plain_ms=timer(filt_plain, 2),
+        pack_ms=timer(lambda: extract.pack_codes(c), 10),
+        **bound(nbytes(c, run_id, *got), extract_ops(nw, valid, ops["K11"])))
+    print(f"K11 n={n} canon={tuple(got[0].shape)} kept={int(got[1].sum())} "
+          f"max_abs_err={err}; {res['K11']['ms']} ms a call, of which the "
+          f"device pack (pack_codes) {res['K11']['pack_ms']} ms")
+    del got
+
+    def keys(shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
+                             device=dev)
+    err = 0
+    for i, (g, runs, run) in enumerate([(8, 2, 2048), (1, 8, 32768)]):
+        z = keys((2, g, runs * run))
+        z[:, :, ::7] = z[:, :, 1:2]
+        z[:, :, -run // 2:] = -1
+        e = max_abs_err([sort.sort_runs(z, run)],
+                        [sort.sort_runs_plain(z, run)])
+        err = max(err, e)
+        print(f"K8 kw=2 G={g} {runs} runs of {run}: max_abs_err={e}")
+        if i == 0:
+            key64 = sort_key64(z).reshape(g * runs, run)
+            res["K8"] = dict(
+                ms=timer(lambda: sort.sort_runs(z, run), 20),
+                plain_ms=timer(lambda: sort.sort_runs_plain(z, run), 5),
+                library_ms=timer(lambda: torch.sort(key64, dim=-1), 20),
+                **bound(2 * nbytes(z)))
+    res["K8"]["max_abs_err"] = err
+
+    err = 0
+    for i, (t, cap) in enumerate([(4, 2048), (16, 8192)]):
+        z = torch.full((2, 1, t * sort.TILE), -1, dtype=torch.int32,
+                       device=dev)
+        hit = torch.rand(t * sort.TILE, device=dev) < cap / (2 * t * sort.TILE)
+        z[:, 0, hit] = keys((2, int(hit.sum())))
+        got = sort.sort_truncate(z, cap)
+        e = max_abs_err([got], [sort.sort_truncate_plain(z, cap)])
+        err = max(err, e)
+        print(f"K9 kw=2 {t} tiles of {sort.TILE}, capacity {cap}, "
+              f"{int(hit.sum())} valid keys: max_abs_err={e}")
+        if i == 0:
+            key64 = sort_key64(z)
+            res["K9"] = dict(
+                ms=timer(lambda: sort.sort_truncate(z, cap), 20),
+                plain_ms=timer(lambda: sort.sort_truncate_plain(z, cap), 5),
+                library_ms=timer(lambda: torch.sort(key64, dim=-1), 20),
+                **bound(nbytes(z, got)))
+    res["K9"]["max_abs_err"] = err
+    for name, r in res.items():
+        need(r["max_abs_err"] <= TOLERANCE,
+             f"{name} disagrees with its plain version: {r}")
+    return res
 
 
 def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits):
@@ -374,15 +731,19 @@ def phase_gram_kernels(dev, timer, seed):
         hold("K6", gram, gram_tiles.gram_tile_scan_plain(merged, gidbits, g),
              f"{what}, gp {g}, Gram sum {int(gram.sum())}")
         if timed:
+            key64 = sort_key64(runs.reshape(runs.shape[0], -1))
             res["K5"].update(
                 ms=timer(lambda: sort.merge_sorted_runs(runs, cap // 128), 10),
                 plain_ms=timer(lambda: sort.merge_sorted_runs_plain(
-                    runs, cap // 128), 3))
+                    runs, cap // 128), 3),
+                library_ms=timer(lambda: torch.sort(key64), 10),
+                **bound(2 * nbytes(runs)))
             res["K6"].update(
                 ms=timer(lambda: gram_tiles.gram_tile_scan(merged, gidbits, g),
                          10),
                 plain_ms=timer(lambda: gram_tiles.gram_tile_scan_plain(
-                    merged, gidbits, g), 3))
+                    merged, gidbits, g), 3),
+                **bound(nbytes(merged, gram)))
 
     # a blocked macro-tile of two blocks that share their 4 clades, as
     # blocks b and b + 16 of phase 6 do
@@ -400,9 +761,12 @@ def phase_gram_kernels(dev, timer, seed):
     hold("K6", tile, gram_tiles.gram_tile_scan_plain(
         merged, gidbits, 2 * block, split=block),
         f"split {block} of gp {2 * block}, tile sum {int(tile.sum())}")
+    key64 = sort_key64(torch.cat([pa, pb], dim=1).reshape(pa.shape[0], -1))
     res["K10"].update(
         ms=timer(lambda: sort.merge_pair_streams(pa, pb), 10),
-        plain_ms=timer(lambda: sort.merge_pair_streams_plain(pa, pb), 3))
+        plain_ms=timer(lambda: sort.merge_pair_streams_plain(pa, pb), 3),
+        library_ms=timer(lambda: torch.sort(key64), 10),
+        **bound(nbytes(pa, pb, merged)))
     args = (merged, gidbits, 2 * block)
     split_ms = timer(lambda: gram_tiles.gram_tile_scan(*args, split=block), 10)
     split_plain = timer(
@@ -722,6 +1086,211 @@ def run_blocked(rng, pool) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
+# --- phases 9-10: BASELINE config 3, the single-genome step, the fallbacks --
+
+def native_u64(pk, mask, window, salt, scale):
+    """The native scalar pipeline's sketch of PackedSeqs `pk`."""
+    from spaced_kmer_sketching_tpu_torch.utils import native
+    return native.sketch_codes(pk.codes, pk.run_lens, mask.lo, mask.hi,
+                               window, salt, scale, False)
+
+
+def seed_salt(mask, window):
+    """The FracMinHash salt of `mask` at the default nonce and hash."""
+    from spaced_kmer_sketching_tpu_torch.utils import boosthash
+    return boosthash.fmh_salt(mask.lo, mask.hi, window, 1, "modern")
+
+
+def run_config3(paths, pool, device="cuda", calls=3) -> dict:
+    """Phase 9: BASELINE config 3, CONFIG3_SEEDS spaced seeds (mask seeds
+    0..7, w = 20, k = 16, scale 200) over each of config 1's two genomes
+    through FracMinHashSketcher.sketch_packed_multiseed, `calls` times a
+    genome (the first call pays one-time set-up): one compact upload and
+    one K7 launch for all seeds a call (unless a retry ran).  Every sketch
+    must equal the native scalar pipeline with its seed's mask and salt.
+    Returns wall times, window-seeds/s and launch counts."""
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    from spaced_kmer_sketching_tpu_torch.models import fracminhash
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    sk = fracminhash.FracMinHashSketcher(SketchConfig(window=20, k=16),
+                                         device=device)
+    packed = list(pool.map(read_fasta, paths))
+    steps = []
+    orig = fracminhash.sketch_batch_compact
+
+    def counting(*a, **kw):
+        steps.append(1)
+        return orig(*a, **kw)
+    fracminhash.sketch_batch_compact = counting
+    build.reset_launches()
+    out, walls = [], []
+    try:
+        for pk in packed:
+            for c in range(calls):
+                t0 = time.perf_counter()
+                res = sk.sketch_packed_multiseed(pk)
+                walls.append(time.perf_counter() - t0)
+                if c == 0:
+                    out.append(res)
+                else:
+                    need(all(np.array_equal(a.keys, b.keys)
+                             for a, b in zip(out[-1], res)),
+                         "config 3: a repeated call gave other keys")
+    finally:
+        fracminhash.sketch_batch_compact = orig
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    windows = [pk.total_windows(20) for pk in packed for _ in range(calls)]
+    rates = [CONFIG3_SEEDS * w / t for w, t in zip(windows, walls)]
+    print(f"phase 9: config 3 ({CONFIG3_SEEDS} seeds, w=20, k=16), {calls} "
+          f"calls on each of 2 genomes of {windows[::calls]} windows: "
+          f"{walls} s wall, {rates} window-seeds/s; {len(steps)} sketch "
+          "steps; launches " + json.dumps(launches))
+    need(launches["K7"] == len(steps) >= len(walls),
+         f"K7 launched {launches['K7']} times for {len(steps)} steps")
+    if len(steps) > len(walls):
+        print(f"phase 9: {len(steps) - len(walls)} overflow retries ran")
+
+    t0 = time.perf_counter()
+    jobs = [(pk, sketch) for pk, sketches in zip(packed, out)
+            for sketch in sketches]
+    want = list(pool.map(lambda js: native_u64(
+        js[0], js[1].mask, 20, seed_salt(js[1].mask, 20), 200), jobs))
+    for (pk, sketch), u64 in zip(jobs, want):
+        need(sketch.count > 0 and np.array_equal(sketch.keys_u64(), u64),
+             f"config 3: seed mask {sketch.mask.lo:#x} sketch of "
+             f"{sketch.count} keys != native's {u64.shape[0]}")
+    need(len(jobs) == 2 * CONFIG3_SEEDS, f"{len(jobs)} config-3 sketches")
+    print(f"checks: config 3's {len(jobs)} sketches equal the native scalar "
+          f"pipeline with their seeds' masks and salts in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "wall_s": walls, "rates": rates}
+
+
+def route_for(sk, n: int, capacity: int, g: int) -> str:
+    """The planner's finish route of the sketcher's dyn step (G genomes
+    of bucket n) at `capacity`."""
+    from spaced_kmer_sketching_tpu_torch.ops import sketch as ops_sketch
+    from spaced_kmer_sketching_tpu_torch.ops.cuda.extract import out_rows
+    kw = ops_sketch.finish_words(sk.config.window)
+    nw = n - 16 * (kw - 1)
+    k_slots = ops_sketch._k_slots_for(nw, sk.config.scale, capacity)
+    return ops_sketch.finish_route(out_rows(nw) * k_slots, nw, k_slots,
+                                   capacity, sk.config.scale, g)
+
+
+def run_fallbacks(path_a, rng, pool, device="cuda") -> dict:
+    """Phase 10: (a) sketch_from_codes on config 1's genome A (K11, the
+    chunked top-k, K4); (b) 16 phage-lambda-sized genomes through
+    sketch_packed_batch at sketch_capacity 512, which the planner sends to
+    _finish_runs (K8, K5) with no overflow; (c) a 2 Mnt genome at
+    sketch_capacity 2048, whose first step takes the tiled
+    _finish_candidates (K9) and overflows, and whose retry finishes.
+    Every sketch must equal the native scalar pipeline.  Returns the launch
+    counts of the three runs together."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import (PackedSeqs,
+                                                              read_fasta)
+    from spaced_kmer_sketching_tpu_torch.models import fracminhash
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.ops.sketch import sketch_from_codes
+
+    total = {k: 0 for k in build.KERNELS}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # (a)
+    sk = fracminhash.FracMinHashSketcher(SketchConfig(window=20, k=16),
+                                         device=device)
+    pk = read_fasta(path_a)
+    rid = np.repeat(np.arange(pk.run_lens.size, dtype=np.int32),
+                    pk.run_lens)
+    cap = sk.config.capacity_for(pk.total_windows(20))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    codes = torch.from_numpy(pk.codes).to(device)
+    run_id = torch.from_numpy(rid).to(device)
+    while True:
+        res = sketch_from_codes(codes, run_id, sk.mask.words_u32, window=20,
+                                salt=sk.salt, scale=200, variant="modern",
+                                capacity=cap)
+        raw = int(res.raw_kept)
+        if raw <= cap:
+            break
+        cap = 1 << raw.bit_length()
+    count = int(res.count)
+    keys = res.keys[:count].cpu().numpy().view(np.uint32).astype(np.uint64)
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    add(launches)
+    print(f"phase 10a: sketch_from_codes on genome A ({pk.codes.size} codes, "
+          f"capacity {cap}): {wall:.3f} s wall, {count} keys; launches "
+          + json.dumps(launches))
+    for key in ("K11", "K4"):
+        need(launches[key] > 0, f"{key} was not launched by phase 10a")
+    u64 = np.stack([keys[:, 0] | keys[:, 1] << np.uint64(32),
+                    keys[:, 2] | keys[:, 3] << np.uint64(32)], axis=1)
+    need(np.array_equal(u64, native_u64(pk, sk.mask, 20, sk.salt, 200)),
+         "phase 10a: sketch_from_codes != native scalar pipeline")
+
+    # (b)
+    sk = fracminhash.FracMinHashSketcher(
+        SketchConfig(window=20, k=16, sketch_capacity=512), device=device)
+    lam = [PackedSeqs(rng.integers(0, 4, LAMBDA_NT).astype(np.uint8),
+                      np.array([LAMBDA_NT], np.int64)) for _ in range(16)]
+    n = fracminhash._bucket_size(LAMBDA_NT + 20)
+    need(route_for(sk, n, 512, 8) == "runs",
+         f"phase 10b: the planner routes n={n} to {route_for(sk, n, 512, 8)}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = sk.sketch_packed_batch(lam)
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    add(launches)
+    print(f"phase 10b: 16 genomes of {LAMBDA_NT} nt (bucket {n}) at "
+          f"capacity 512 through _finish_runs: {wall:.3f} s wall, "
+          f"{[x.count for x in got]} keys; launches " + json.dumps(launches))
+    need(launches["K8"] == 2 and launches["K2"] == 0,
+         "phase 10b: expected one K8 finish per 8-genome dispatch and no "
+         "retry")
+    want = list(pool.map(lambda q: native_u64(q, sk.mask, 20, sk.salt, 200),
+                         lam))
+    for i, (x, u) in enumerate(zip(got, want)):
+        need(np.array_equal(x.keys_u64(), u),
+             f"phase 10b: genome {i}'s sketch != native")
+
+    # (c)
+    sk = fracminhash.FracMinHashSketcher(
+        SketchConfig(window=20, k=16, sketch_capacity=2048), device=device)
+    big = PackedSeqs(rng.integers(0, 4, 2_000_000).astype(np.uint8),
+                     np.array([1_200_000, 800_000], np.int64))
+    n = fracminhash._bucket_size(big.codes.size + 20)
+    need(route_for(sk, n, 2048, 1) == "tiled",
+         f"phase 10c: the planner routes n={n} to {route_for(sk, n, 2048, 1)}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got, = sk.sketch_packed_batch([big])
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    add(launches)
+    print(f"phase 10c: a 2 Mnt genome at capacity 2048 (bucket {n}): "
+          f"{wall:.3f} s wall, {got.count} keys; launches "
+          + json.dumps(launches))
+    need(launches["K9"] == 1 and launches["K2"] > 0,
+         "phase 10c: expected the tiled K9 finish, an overflow and a "
+         "tree-finished retry")
+    need(np.array_equal(got.keys_u64(),
+                        native_u64(big, sk.mask, 20, sk.salt, 200)),
+         "phase 10c: the sketch != native scalar pipeline")
+    print("checks: phase 10's sketches equal the native scalar pipeline")
+    return {"launches": total}
+
+
 # --- phase 7: BASELINE config 5 -------------------------------------------
 
 def write_chromosome(path, name, codes, gaps):
@@ -1037,15 +1606,23 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
+    t0 = time.perf_counter()
+    ops = extract_op_counts(so.parent)
+    print(f"probe SASS instructions (cuobjdump -sass): "
+          f"{json.dumps(ops['sass'])}; "
+          f"a window of K1 and K7 {ops['K1'][0]} + {ops['K1'][1]} if valid, "
+          f"of K11 {ops['K11'][0]} + {ops['K11'][1]} if valid "
+          f"({time.perf_counter() - t0:.3f} s)")
 
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    kres = phase_kernels(dev, rng, time_ms)
+    kres = phase_kernels(dev, rng, time_ms, ops)
     kres.update(phase_gram_kernels(dev, time_ms, args.seed))
-    kres.update(phase_k7(dev, rng, time_ms))
-    print(f"phase 2: K1-K7 and K10 bit-exact vs plain in "
-          f"{time.perf_counter() - t0:.3f} s")
+    kres.update(phase_k7(dev, rng, time_ms, ops))
+    kres.update(phase_seed_and_fallback_kernels(dev, rng, time_ms, ops))
+    print(f"phase 2: K1-K11 and the seed-batch modes of K1 and K7 bit-exact "
+          f"vs plain in {time.perf_counter() - t0:.3f} s")
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with cf.ThreadPoolExecutor(max_workers=8) as pool:
@@ -1056,9 +1633,20 @@ def main(argv=None) -> int:
             print(f"data: {GENOMES} FASTAs written in "
                   f"{time.perf_counter() - t0:.3f} s")
             run = run_main_path(paths, pathlib.Path(tmp), "cuda", pool)
+            # phase 9: BASELINE config 3 on config 1's two genomes
+            t0 = time.perf_counter()
+            cfg3 = run_config3(paths[:2], pool)
+            print(f"phase 9: {time.perf_counter() - t0:.3f} s in all")
+            # phase 10: the single-genome step and the finish fallbacks
+            t0 = time.perf_counter()
+            fb = run_fallbacks(paths[0], rng, pool)
+            print(f"phase 10: {time.perf_counter() - t0:.3f} s in all")
         for key in ("K1", "K2", "K3", "K4"):
             need(run["launches"][key] > 0,
                  f"{key} was not launched by the main path")
+        for key in ("K7", "K2", "K3", "K4"):
+            need(cfg3["launches"][key] > 0,
+                 f"{key} was not launched by config 3")
         # phase 5: BASELINE config 2
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -1080,16 +1668,26 @@ def main(argv=None) -> int:
         cfg4b = run_config4_device(args.seed, pool)
         print(f"phase 8: {time.perf_counter() - t0:.3f} s in all")
 
-    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b)
+    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
         launches = sum(p["launches"][key] for p in paths)
+        need(launches > 0, f"{key} was launched by no path")
         kernels.append({"name": kern.name, "route": "cuda",
                         "source": kern.source, "replaces": kern.replaces,
                         "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
+    seeds, seeds7 = kres["K1 seeds"], kres["K7 seeds"]
+    print(f"K1 seed-batch mode ({CONFIG3_SEEDS} seeds, n = 2^23): "
+          f"{seeds['ms']} ms, {CONFIG3_SEEDS} single-seed launches "
+          f"{seeds['singles_ms']} ms, plain {seeds['plain_ms']} ms, bound "
+          f"{seeds['bound_ms']} ms ({seeds['bound_by']}); K7 seed-batch mode "
+          f"(config 3's path) {seeds7['ms']} ms, plain {seeds7['plain_ms']} "
+          f"ms, bound {seeds7['bound_ms']} ms ({seeds7['bound_by']}); {smi}")
     print(json.dumps({"kernels": kernels}))
     s_ms, c_ms = run["config1_warm"]
     print(f"config 1 (2 genomes, w=20, k=16, warm): sketching {s_ms} ms, "
@@ -1106,6 +1704,9 @@ def main(argv=None) -> int:
           f"{cfg4['two_step_ms'][0]} ms, comparison {cfg4['two_step_ms'][1]} "
           f"ms); G = {CONFIG4_GENOMES} device-source pipeline "
           f"{cfg4b['wall_s']} s; {smi}")
+    print(f"config 3 ({CONFIG3_SEEDS} seeds over each of config 1's 2 "
+          f"genomes): {cfg3['wall_s']} s wall, {cfg3['rates']} "
+          f"window-seeds/s; {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

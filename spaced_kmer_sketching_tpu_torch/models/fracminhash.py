@@ -18,9 +18,12 @@ package: G <= 8 with the native library takes the host sorted merge;
 (ops/gram.py: K5 merge, K6 scan); larger G the single-device block-cache
 schedule (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile).
 
-The counterpart of the JAX package's models/fracminhash.py.  Not ported
-yet (ROADMAP.md): fused multi-seed sketching.  The TPU upload cache is
-left behind.
+Fused multi-seed sketching (BASELINE config 3, `sketch_packed_multiseed`)
+uploads one genome in the compact form and runs S spaced seeds over it in
+one K7 launch (seed-batch mode) and one finish of S rows.
+
+The counterpart of the JAX package's models/fracminhash.py.  The TPU
+upload cache is left behind.
 """
 from __future__ import annotations
 
@@ -187,6 +190,55 @@ class FracMinHashSketcher:
             raws[gi] = raws2[bi]
         return keys, counts, raws
 
+    def sketch_packed_multiseed(self, packed: PackedSeqs,
+                                masks: Optional[Sequence[SpacedSeedMask]]
+                                = None,
+                                seeds: Optional[Sequence[int]] = None,
+                                name: str = "") -> List[Sketch]:
+        """Fused multi-seed sketching: S spaced seeds over ONE genome in
+        one device step (BASELINE config 3).  masks: explicit seed masks
+        (each of this sketcher's window); seeds: mask RNG seeds at this
+        config's (window, k), default 0..7.  Returns one Sketch per seed,
+        each carrying its own mask, equal to sketching with each mask
+        alone.  The genome goes up once in the compact form (2-bit words
+        and run starts); K7 runs every seed over it in one launch, and an
+        overflow re-runs all seeds at the power of two above the largest
+        raw kept count."""
+        cfg = self.config
+        if masks is None:
+            masks = [spaced_seed_mask(cfg.window, cfg.k, s)
+                     for s in (seeds if seeds is not None else range(8))]
+        for m in masks:
+            if m.window != cfg.window:
+                raise ValueError(f"mask window {m.window} != config "
+                                 f"window {cfg.window}")
+        nw = packed.total_windows(cfg.window)
+        if nw <= 0:
+            return [Sketch(keys=np.empty((0, 4), np.uint32), count=0,
+                           window=cfg.window, mask=m, name=name)
+                    for m in masks]
+        salts = [boosthash.fmh_salt(m.lo, m.hi, cfg.window, cfg.nonce,
+                                    cfg.hash_variant) for m in masks]
+        masks_w = np.stack([m.words_u32 for m in masks])
+        n, args = self._compact_upload(packed.codes,
+                                       np.cumsum(packed.run_lens)[:-1], 0)
+        capacity = cfg.capacity_for(nw)
+        while True:
+            out = sketch_batch_compact(
+                *args, masks_w, salts, n=n, window=cfg.window,
+                scale=cfg.scale, variant=cfg.hash_variant, capacity=capacity)
+            raw = int(out.raw_kept.max())
+            if raw <= capacity:
+                break
+            capacity = 1 << math.ceil(math.log2(raw + 1))
+            log.info("multiseed overflow: retry cap=%d", capacity)
+        keys = out.keys.cpu().numpy().view(np.uint32)
+        counts = out.count.cpu().numpy()
+        return [Sketch(keys=keys[i, :int(counts[i])].copy(),
+                       count=int(counts[i]), window=cfg.window,
+                       mask=masks[i], name=name)
+                for i in range(len(masks))]
+
     def sketch_file_streaming(self, path: str, segment_nt: int = 1 << 24,
                               name: str = "") -> Sketch:
         """Bounded-memory sketch of an arbitrarily large FASTA: the native
@@ -276,6 +328,18 @@ class FracMinHashSketcher:
             raw, count = int(res.raw_kept.max()), int(res.count[0])
         return res.keys, count
 
+    def _compact_upload(self, codes: np.ndarray, starts: np.ndarray,
+                        rid0: int):
+        """One genome's compact upload for sketch_batch_compact: its bucket
+        n and the device (packed words, bounds, rid0, vlen), copied from
+        pinned memory without blocking the host."""
+        n = _bucket_size(codes.size + self.config.window)
+        body = packed_body(n)
+        host = (pack2bit(codes, body // 16).view(np.int32)[None],
+                np.append(starts, body).astype(np.int32)[None],
+                np.array([rid0], np.int32), np.array([codes.size], np.int32))
+        return n, tuple(_upload(x, self.device) for x in host)
+
     def _dispatch_sketch_compact(self, codes: np.ndarray, starts: np.ndarray,
                                  rid0: int):
         """Compact-upload dispatch of one genome (a streaming segment): its
@@ -284,13 +348,8 @@ class FracMinHashSketcher:
         (ops/sketch.sketch_batch_compact), and raw_kept and the count start
         back at once.  Returns a handle for _collect_sketch_device."""
         cfg = self.config
-        n = _bucket_size(codes.size + cfg.window)
         capacity = cfg.capacity_for(codes.size - cfg.window + 1)
-        body = packed_body(n)
-        host = (pack2bit(codes, body // 16).view(np.int32)[None],
-                np.append(starts, body).astype(np.int32)[None],
-                np.array([rid0], np.int32), np.array([codes.size], np.int32))
-        args = tuple(_upload(x, self.device) for x in host)
+        n, args = self._compact_upload(codes, starts, rid0)
 
         def make(cap):
             def step(p_, b_, rid0_, vlen_):

@@ -77,9 +77,18 @@ KERNELS = {
     "K7": Kernel("extract_compact_raw", "spaced_kmer_sketching_tpu_torch/"
                  "csrc/extract.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                  "extract.py:465"),
+    "K8": Kernel("sort_runs", "spaced_kmer_sketching_tpu_torch/csrc/"
+                 "sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                 "sort.py:189"),
+    "K9": Kernel("sort_truncate", "spaced_kmer_sketching_tpu_torch/csrc/"
+                 "sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                 "sort.py:249"),
     "K10": Kernel("merge_pair_streams", "spaced_kmer_sketching_tpu_torch/"
                   "csrc/sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                   "sort.py:432"),
+    "K11": Kernel("extract_filter", "spaced_kmer_sketching_tpu_torch/"
+                  "csrc/extract.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
+                  "extract.py:272"),
 }
 
 
@@ -157,10 +166,13 @@ def _declare(lib) -> None:
     p, i, i64, u64 = c.c_void_p, c.c_int, c.c_int64, c.c_uint64
     lib.sks_extract_compact.restype = i
     lib.sks_extract_compact.argtypes = [
-        p, i64, p, i64, i, i64, i, u64, u64, u64, i, i, i, i, p, p, p]
+        p, i64, p, i64, i, i64, i, u64, u64, u64, p, i, i, i, i, p, p, p]
     lib.sks_extract_compact_raw.restype = i
     lib.sks_extract_compact_raw.argtypes = [
-        p, i64, p, i, p, p, i, i64, i, u64, u64, u64, i, i, i, i, p, p, p]
+        p, i64, p, i, p, p, i, i64, i, u64, u64, u64, p, i, i, i, i, p, p, p]
+    lib.sks_extract_filter.restype = i
+    lib.sks_extract_filter.argtypes = [
+        p, i64, p, i64, i, i64, i, u64, u64, u64, i, i, p, p, p]
     lib.sks_compact_rows.restype = i
     lib.sks_compact_rows.argtypes = [p, i, i64, i, p, p, p]
     lib.sks_compact_global.restype = i
@@ -168,7 +180,11 @@ def _declare(lib) -> None:
     lib.sks_sort_rows.restype = i
     lib.sks_sort_rows.argtypes = [p, p, i, i, i64, p]
     lib.sks_merge_runs.restype = i
-    lib.sks_merge_runs.argtypes = [p, p, i, i64, i64, p]
+    lib.sks_merge_runs.argtypes = [p, p, i, i64, i64, i64, p]
+    lib.sks_sort_runs.restype = i
+    lib.sks_sort_runs.argtypes = [p, p, i, i, i64, i64, p]
+    lib.sks_sort_truncate.restype = i
+    lib.sks_sort_truncate.argtypes = [p, p, p, p, i, i, i64, i64, p]
     lib.sks_merge_pair.restype = i
     lib.sks_merge_pair.argtypes = [p, p, p, i, i64, p]
     lib.sks_gram_tiles.restype = i

@@ -1,26 +1,33 @@
-"""K1 and K7: fused extract + hash + filter + per-row compaction
-(csrc/extract.cu, one kernel with two sources of run ids).
+"""K1, K7 and K11: fused extract + hash + filter (csrc/extract.cu, one
+kernel template with two sources of run ids and two outputs).
 
-Contract (the JAX entries extract_compact_windows_prepacked and
+K1 and K7 contract (the JAX entries extract_compact_windows_prepacked and
 extract_compact_windows_raw, with the window as a runtime value): for every
 genome g and window t < rows * 128, with rows = ceil(nw / 32768) * 256 as
 the JAX kernels' block grid gives it, compute the canonical masked key and
 keep it iff the window is valid and (boost_hash(key) ^ salt) % scale == 0.
 Each 128-window row emits its first k_slots kept keys in window order,
-all-ones fill after them, and its TRUE kept count.
+all-ones fill after them, and its TRUE kept count.  Seed-batch mode (the
+JAX `batch=S` over one shared genome, BASELINE config 3): mask_words (S, 4)
+and salt S ints run S seeds over the ONE genome row of the inputs in one
+launch; the outputs have one row per seed.
+
+K11 contract (the JAX extract_filter_windows_batched): codes and run ids
+(G, n) -> every window's canonical key and keep flag, nw = n - window + 1
+windows, no compaction.  The key is defined at every window, valid or not.
 
 The genome arrives as raw 2-bit words, 16 codes per u32, LSB first
-(utils/native.pack2bit); the JAX kernels' 16x-repeated window-index planes
-do not exist here.  The run ids come from an int32 plane that is -1 on
-padding (K1, `extract_compact`) or from each genome's sorted run starts,
-the id of the run open at position 0 and its code count (K7,
-`extract_compact_raw`, the compact uploads of streaming segments and of
-the device pipeline).  Key words travel as int32 tensors holding the u32
-bits.
+(utils/native.pack2bit, or pack_codes on the device); the JAX kernels'
+16x-repeated window-index planes do not exist here.  The run ids come from
+an int32 plane that is -1 on padding (K1, `extract_compact`; K11) or from
+each genome's sorted run starts, the id of the run open at position 0 and
+its code count (K7, `extract_compact_raw`, the compact uploads of
+streaming segments, of the device pipeline and of multi-seed sketching).
+Key words travel as int32 tensors holding the u32 bits.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ LANES = 128
 HALO = 1024                        # codes the JAX kernel reads past a block
 K1 = build.KERNELS["K1"]
 K7 = build.KERNELS["K7"]
+K11 = build.KERNELS["K11"]
 
 
 def out_rows(nw: int) -> int:
@@ -67,6 +75,54 @@ def pack2bit_rows(codes: np.ndarray) -> np.ndarray:
     return np.stack([pack2bit(row, codes.shape[1] // 16) for row in codes])
 
 
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """(G, n) integer codes 0..3 -> (G, ceil(n / 16)) int32 (u32 bits), 16
+    codes per word LSB first, positions past n as code 0: pack2bit on the
+    codes' device."""
+    g, n = codes.shape
+    c = torch.zeros((g, -(-n // 16) * 16), dtype=torch.int64,
+                    device=codes.device)
+    c[:, :n] = codes
+    shifts = 2 * torch.arange(16, device=codes.device)
+    return u64ops.as_i32((c.reshape(g, -1, 16) << shifts).sum(-1))
+
+
+def _seed_rows(mask_words, salt) -> Optional[np.ndarray]:
+    """None for one seed (mask_words 4 ints, salt an int); for S seeds
+    (mask_words (S, 4), salt S ints) the (S, 3) uint64 rows [mask_lo,
+    mask_hi, salt] that seed-batch mode reads."""
+    m = np.asarray(mask_words, dtype=np.uint64)
+    if m.ndim == 1:
+        if m.shape != (4,) or np.ndim(salt) != 0:
+            raise ValueError("one seed takes 4 mask words and one salt")
+        return None
+    salts = np.asarray([int(x) for x in salt], dtype=np.uint64)
+    if m.ndim != 2 or m.shape[1] != 4 or salts.shape != (m.shape[0],) \
+            or m.shape[0] < 1:
+        raise ValueError(f"seed-batch mode takes (S, 4) masks and S salts, "
+                         f"got {m.shape} and {salts.shape}")
+    return np.stack([m[:, 0] | m[:, 1] << np.uint64(32),
+                     m[:, 2] | m[:, 3] << np.uint64(32), salts], axis=1)
+
+
+def _seed_args(rows: Optional[np.ndarray], mask_words, salt, dev):
+    """The C entries' (mask_lo, mask_hi, salt, seeds) arguments; `keep`
+    holds the uploaded rows alive until the launch is queued."""
+    if rows is None:
+        m = [int(x) for x in mask_words]
+        return m[0] | m[1] << 32, m[2] | m[3] << 32, int(salt), None, None
+    t = torch.from_numpy(rows.view(np.int64)).to(dev)
+    return 0, 0, 0, t.data_ptr(), t
+
+
+def _per_seed(plain, mask_words, salt):
+    """A plain version over each seed of seed-batch mode, rows stacked."""
+    outs = [plain(list(mw), int(sv)) for mw, sv in
+            zip(np.asarray(mask_words, dtype=np.uint64), salt)]
+    return (torch.cat([o[0] for o in outs], dim=1),
+            torch.cat([o[1] for o in outs], dim=0))
+
+
 def _check(packed, run_id, window, k_slots, out_words) -> None:
     if packed.dim() != 2 or run_id.dim() != 2 or \
             packed.shape[0] != run_id.shape[0]:
@@ -85,15 +141,18 @@ def _check_args(window, k_slots, out_words) -> None:
 
 
 def extract_compact(packed: torch.Tensor, run_id: torch.Tensor,
-                    mask_words: Sequence[int], salt: int, *, window: int,
+                    mask_words, salt, *, window: int,
                     nw: int, scale: int, variant: str, k_slots: int,
                     out_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """packed (G, P) int32 (u32 bits), run_id (G, n) int32 ->
-    (planes (out_words, G, rows * k_slots) int32, rowcnt (G, rows) int32).
+    (planes (out_words, Y, rows * k_slots) int32, rowcnt (Y, rows) int32).
 
-    mask_words: the mask's 4 u32 words; salt: the 64-bit FracMinHash salt.
-    CPU tensors take the plain version; CUDA tensors launch K1."""
+    mask_words: the mask's 4 u32 words and salt the 64-bit FracMinHash
+    salt (Y = G); or (S, 4) masks and S salts over a single genome row
+    (seed-batch mode, Y = S).  CPU tensors take the plain version; CUDA
+    tensors launch K1."""
     _check(packed, run_id, window, k_slots, out_words)
+    rows_s = _check_seeds(packed, mask_words, salt)
     if packed.device.type == "cpu":
         return extract_compact_plain(
             packed, run_id, mask_words, salt, window=window, nw=nw,
@@ -105,20 +164,28 @@ def extract_compact(packed: torch.Tensor, run_id: torch.Tensor,
     if variant not in ("modern", "legacy"):
         raise ValueError(f"unknown hash variant {variant!r}")
     g, pw = packed.shape
+    y = g if rows_s is None else rows_s.shape[0]
     n = run_id.shape[1]
     rows = out_rows(nw)
-    out = torch.empty((out_words, g, rows * k_slots), dtype=torch.int32,
+    out = torch.empty((out_words, y, rows * k_slots), dtype=torch.int32,
                       device=dev)
-    rowcnt = torch.empty((g, rows), dtype=torch.int32, device=dev)
-    m = [int(x) for x in mask_words]
+    rowcnt = torch.empty((y, rows), dtype=torch.int32, device=dev)
+    m_lo, m_hi, sv, seeds, _keep = _seed_args(rows_s, mask_words, salt, dev)
     err = build.lib().sks_extract_compact(
-        packed.data_ptr(), pw, run_id.data_ptr(), n, g, rows, window,
-        m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
-        int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
-        rowcnt.data_ptr(), build.stream_ptr(dev))
+        packed.data_ptr(), pw, run_id.data_ptr(), n, y, rows, window,
+        m_lo, m_hi, sv, seeds, scale, int(variant == "legacy"), k_slots,
+        out_words, out.data_ptr(), rowcnt.data_ptr(), build.stream_ptr(dev))
     build.check(err, "sks_extract_compact")
     K1.launches += 1
     return out, rowcnt
+
+
+def _check_seeds(packed, mask_words, salt) -> Optional[np.ndarray]:
+    rows = _seed_rows(mask_words, salt)
+    if rows is not None and packed.shape[0] != 1:
+        raise ValueError(f"seed-batch mode reads one genome row, got "
+                         f"{packed.shape[0]}")
+    return rows
 
 
 def extract_compact_plain(packed, run_id, mask_words, salt, *, window: int,
@@ -126,8 +193,14 @@ def extract_compact_plain(packed, run_id, mask_words, salt, *, window: int,
                           out_words: int):
     """Plain PyTorch version of K1 (any device): unpack the codes,
     extract (ops/extract.py), filter (ops/u64ops.fmh_keep), then select
-    each row's first k_slots kept windows by a cumsum."""
+    each row's first k_slots kept windows by a cumsum; seed-batch mode
+    runs it once per seed."""
     _check(packed, run_id, window, k_slots, out_words)
+    args = dict(window=window, nw=nw, scale=scale, variant=variant,
+                k_slots=k_slots, out_words=out_words)
+    if _check_seeds(packed, mask_words, salt) is not None:
+        return _per_seed(lambda mw, sv: extract_compact_plain(
+            packed, run_id, mw, sv, **args), mask_words, salt)
     g = packed.shape[0]
     n = run_id.shape[1]
     rows = out_rows(nw)
@@ -170,7 +243,7 @@ def _check_raw(packed, bounds, rid0, vlen) -> None:
 
 def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
                         rid0: torch.Tensor, vlen: torch.Tensor,
-                        mask_words: Sequence[int], salt: int, *, window: int,
+                        mask_words, salt, *, window: int,
                         nw: int, scale: int, variant: str, k_slots: int,
                         out_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1's contract with the run ids given as bounds: packed (G, P) int32
@@ -178,10 +251,12 @@ def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
     int32 sorted run starts (padding must lie at or past vlen, e.g. the
     body length), rid0 (G,) int32 the id of the run open at position 0,
     vlen (G,) int32 the code count.  The run id at position t is rid0 +
-    #(bounds <= t) for t < min(vlen, 16 * P), else -1.  Returns (planes
-    (out_words, G, rows * k_slots) int32, rowcnt (G, rows) int32).
-    CPU tensors take the plain version; CUDA tensors launch K7."""
+    #(bounds <= t) for t < min(vlen, 16 * P), else -1.  mask_words and
+    salt as extract_compact's (seed-batch mode over one genome row).
+    Returns (planes (out_words, Y, rows * k_slots) int32, rowcnt (Y, rows)
+    int32).  CPU tensors take the plain version; CUDA tensors launch K7."""
     _check_raw(packed, bounds, rid0, vlen)
+    rows_s = _check_seeds(packed, mask_words, salt)
     if packed.device.type == "cpu":
         return extract_compact_raw_plain(
             packed, bounds, rid0, vlen, mask_words, salt, window=window,
@@ -196,17 +271,17 @@ def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
     if variant not in ("modern", "legacy"):
         raise ValueError(f"unknown hash variant {variant!r}")
     g, pw = packed.shape
+    y = g if rows_s is None else rows_s.shape[0]
     rows = out_rows(nw)
-    out = torch.empty((out_words, g, rows * k_slots), dtype=torch.int32,
+    out = torch.empty((out_words, y, rows * k_slots), dtype=torch.int32,
                       device=dev)
-    rowcnt = torch.empty((g, rows), dtype=torch.int32, device=dev)
-    m = [int(x) for x in mask_words]
+    rowcnt = torch.empty((y, rows), dtype=torch.int32, device=dev)
+    m_lo, m_hi, sv, seeds, _keep = _seed_args(rows_s, mask_words, salt, dev)
     err = build.lib().sks_extract_compact_raw(
         packed.data_ptr(), pw, bounds.data_ptr(), bounds.shape[1],
-        rid0.data_ptr(), vlen.data_ptr(), g, rows, window,
-        m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
-        int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
-        rowcnt.data_ptr(), build.stream_ptr(dev))
+        rid0.data_ptr(), vlen.data_ptr(), y, rows, window, m_lo, m_hi, sv,
+        seeds, scale, int(variant == "legacy"), k_slots, out_words,
+        out.data_ptr(), rowcnt.data_ptr(), build.stream_ptr(dev))
     build.check(err, "sks_extract_compact_raw")
     K7.launches += 1
     return out, rowcnt
@@ -233,3 +308,57 @@ def extract_compact_raw_plain(packed, bounds, rid0, vlen, mask_words, salt,
     return extract_compact_plain(
         packed, run_id, mask_words, salt, window=window, nw=nw, scale=scale,
         variant=variant, k_slots=k_slots, out_words=out_words)
+
+
+def extract_filter(codes: torch.Tensor, run_id: torch.Tensor,
+                   mask_words: Sequence[int], salt: int, *, window: int,
+                   scale: int, variant: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """codes (G, n) integer 0..3, run_id (G, n) int32 -> (canon (4, G, nw)
+    int32 every window's canonical key words (u32 bits), keep (G, nw)
+    bool), nw = n - window + 1.  CPU tensors take the plain version; CUDA
+    tensors are packed on the device (pack_codes) and launch K11."""
+    _check_filter(codes, run_id, window)
+    if codes.device.type == "cpu":
+        return extract_filter_plain(codes, run_id, mask_words, salt,
+                                    window=window, scale=scale,
+                                    variant=variant)
+    dev = codes.device
+    build.require(run_id, "run_id", torch.int32, 2, dev)
+    if variant not in ("modern", "legacy"):
+        raise ValueError(f"unknown hash variant {variant!r}")
+    g, n = codes.shape
+    nw = n - window + 1
+    packed = pack_codes(codes)
+    canon = torch.empty((4, g, nw), dtype=torch.int32, device=dev)
+    keep = torch.empty((g, nw), dtype=torch.bool, device=dev)
+    m = [int(x) for x in mask_words]
+    err = build.lib().sks_extract_filter(
+        packed.data_ptr(), packed.shape[1], run_id.data_ptr(), n, g, nw,
+        window, m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
+        int(variant == "legacy"), canon.data_ptr(), keep.data_ptr(),
+        build.stream_ptr(dev))
+    build.check(err, "sks_extract_filter")
+    K11.launches += 1
+    return canon, keep
+
+
+def _check_filter(codes, run_id, window) -> None:
+    if codes.dim() != 2 or tuple(run_id.shape) != tuple(codes.shape):
+        raise ValueError(f"codes {tuple(codes.shape)} and run_id "
+                         f"{tuple(run_id.shape)} must both be (G, n)")
+    if not 1 <= window <= min(64, codes.shape[1]):
+        raise ValueError(f"window {window} out of range for n = "
+                         f"{codes.shape[1]}")
+
+
+def extract_filter_plain(codes, run_id, mask_words, salt, *, window: int,
+                         scale: int, variant: str):
+    """Plain PyTorch version of K11 (any device): ops/extract.
+    extract_windows, then ops/u64ops.fmh_keep on the valid windows."""
+    _check_filter(codes, run_id, window)
+    canon, valid = extract_windows(codes.long(), run_id.long(), window,
+                                   mask_words)
+    keep = valid & u64ops.fmh_keep(*canon, salt=salt, scale=scale,
+                                   variant=variant)
+    return torch.stack([u64ops.as_i32(c) for c in canon]), keep

@@ -1,14 +1,19 @@
-"""K4 sort, K5 and K10 merges of multi-word keys (csrc/sort.cu).
+"""K4 sort, K8 run sort, K9 truncating tile sort, K5 and K10 merges of
+multi-word keys (csrc/sort.cu).
 
 K4 sorts each genome row of stacked planes (kw, G, N) int32 holding u32
 words, word kw-1 most significant, N a power of two >= 1024; all-ones
 sentinels sort last.  The JAX entry is bitonic_sort_128 on (N, W) keys,
-batched by the finish's vmap.
+batched by the finish's vmap.  K8 (sort_runs_128) sorts each row's runs
+with alternating directions, K9 (sort_truncate_128) keeps each 32,768-key
+tile's share of a capacity and merges them; both serve the finish
+fallbacks of ops/sketch.py, batched over the rows as K4 is.
 
 K5 (merge_sorted_runs) and K10 (merge_pair_streams) merge ascending packed
 (key, gid) streams of pw <= 5 planes, laid out as the JAX package's lists
 of (rows, 128) planes stacked into one (pw, rows, 128) int32 tensor; every
-plane is part of the key.
+plane is part of the key.  merge_row_runs is K5 on each row of (kw, G, N)
+planes (the merge rounds of the finish fallback _finish_runs).
 """
 from __future__ import annotations
 
@@ -20,7 +25,10 @@ from . import build
 LANES = 128
 K4 = build.KERNELS["K4"]
 K5 = build.KERNELS["K5"]
+K8 = build.KERNELS["K8"]
+K9 = build.KERNELS["K9"]
 K10 = build.KERNELS["K10"]
+TILE = 32768                 # K9's tile (the JAX sort.TILE_ELEMS)
 
 
 def sort_rows(planes: torch.Tensor) -> torch.Tensor:
@@ -90,7 +98,8 @@ def merge_sorted_runs(planes: torch.Tensor, run_rows: int) -> torch.Tensor:
     out = torch.empty_like(planes)
     err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(),
                                      planes.shape[0], r * LANES,
-                                     run_rows * LANES, build.stream_ptr(dev))
+                                     run_rows * LANES, r * LANES,
+                                     build.stream_ptr(dev))
     build.check(err, "sks_merge_runs")
     K5.launches += 1
     return out
@@ -135,3 +144,109 @@ def merge_pair_streams_plain(pa: torch.Tensor, pb: torch.Tensor
     sort_rows_plain's stable LSD sorts."""
     both = torch.cat([pa, pb], dim=1)
     return merge_sorted_runs_plain(both, pa.shape[1])
+
+
+def merge_row_runs(planes: torch.Tensor, run: int) -> torch.Tensor:
+    """planes (kw<=4, G, N) int32 whose runs of `run` entries are each
+    ascending -> each row merged into one ascending run.  N and run powers
+    of two.  CPU tensors take the plain version; CUDA tensors launch K5."""
+    _check_rows(planes, "merge_row_runs")
+    kw, g, n = planes.shape
+    if not _pow2(n) or not _pow2(run) or run > n:
+        raise ValueError(f"rows of {n} do not hold power-of-two runs of "
+                         f"{run}")
+    if run == n:
+        return planes
+    if planes.device.type == "cpu":
+        return sort_rows_plain(planes)
+    dev = planes.device
+    build.require(planes, "planes", torch.int32, 3, dev)
+    out = torch.empty_like(planes)
+    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(), kw,
+                                     g * n, run, n, build.stream_ptr(dev))
+    build.check(err, "sks_merge_runs")
+    K5.launches += 1
+    return out
+
+
+def _check_rows(planes: torch.Tensor, name: str) -> None:
+    if planes.dim() != 3 or not 1 <= planes.shape[0] <= 4:
+        raise ValueError(f"{name} takes (kw<=4, G, m) planes, got "
+                         f"{tuple(planes.shape)}")
+
+
+def sort_runs(planes: torch.Tensor, run: int) -> torch.Tensor:
+    """planes (kw<=4, G, m) int32 -> a copy with each row's runs of `run`
+    entries (a power of two >= 128 dividing m) sorted independently: run i
+    of a row ascending if i is even, descending if odd (the JAX
+    sort_runs_128 on each row).  CPU tensors take the plain version; CUDA
+    tensors launch K8."""
+    _check_rows(planes, "sort_runs")
+    kw, g, m = planes.shape
+    if run < LANES or not _pow2(run) or m % run:
+        raise ValueError(f"runs of {run} entries do not tile rows of {m}")
+    if planes.device.type == "cpu":
+        return sort_runs_plain(planes, run)
+    dev = planes.device
+    build.require(planes, "planes", torch.int32, 3, dev)
+    out = torch.empty_like(planes)
+    err = build.lib().sks_sort_runs(planes.data_ptr(), out.data_ptr(), kw, g,
+                                    m, run, build.stream_ptr(dev))
+    build.check(err, "sks_sort_runs")
+    K8.launches += 1
+    return out
+
+
+def sort_runs_plain(planes: torch.Tensor, run: int) -> torch.Tensor:
+    """Plain PyTorch version of K8 (any device): sort_rows_plain on every
+    run, odd runs flipped."""
+    kw, g, m = planes.shape
+    x = sort_rows_plain(planes.reshape(kw, g * (m // run), run))
+    x = x.reshape(kw, g, m // run, run)
+    odd = (torch.arange(m // run, device=planes.device) % 2 == 1)[:, None]
+    return torch.where(odd, x.flip(-1), x).reshape(kw, g, m)
+
+
+def _truncate_shape(m: int, capacity: int) -> int:
+    """The tile count t of K9's contract, checked."""
+    t = m // TILE
+    if m % TILE or t < 2 or not _pow2(t) or capacity % t or \
+            capacity // t < LANES or not _pow2(capacity // t):
+        raise ValueError(f"sort_truncate takes m = t * {TILE} with t >= 2 a "
+                         f"power of two and a power-of-two share capacity / "
+                         f"t >= {LANES}, got m = {m}, capacity = {capacity}")
+    return t
+
+
+def sort_truncate(planes: torch.Tensor, capacity: int) -> torch.Tensor:
+    """planes (kw<=4, G, m) int32, m = t * 32,768 -> (kw, G, capacity): per
+    row, each tile's capacity / t smallest entries, merged ascending (the
+    JAX sort_truncate_128 on each row).  The full sort's first capacity
+    entries whenever no tile holds more than its share of valid keys.  CPU
+    tensors take the plain version; CUDA tensors launch K9."""
+    _check_rows(planes, "sort_truncate")
+    kw, g, m = planes.shape
+    _truncate_shape(m, capacity)
+    if planes.device.type == "cpu":
+        return sort_truncate_plain(planes, capacity)
+    dev = planes.device
+    build.require(planes, "planes", torch.int32, 3, dev)
+    scratch = torch.empty_like(planes)
+    cut = torch.empty((kw, g, capacity), dtype=torch.int32, device=dev)
+    out = torch.empty_like(cut)
+    err = build.lib().sks_sort_truncate(
+        planes.data_ptr(), scratch.data_ptr(), cut.data_ptr(),
+        out.data_ptr(), kw, g, m, capacity, build.stream_ptr(dev))
+    build.check(err, "sks_sort_truncate")
+    K9.launches += 1
+    return out
+
+
+def sort_truncate_plain(planes: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Plain PyTorch version of K9 (any device): sort_rows_plain on every
+    tile, each cut to its share, then on each row."""
+    kw, g, m = planes.shape
+    t = _truncate_shape(m, capacity)
+    tiles = sort_rows_plain(planes.reshape(kw, g * t, TILE))
+    return sort_rows_plain(tiles[..., :capacity // t].reshape(kw, g,
+                                                              capacity))

@@ -139,3 +139,9 @@ def fmh_keep(w0, w1, w2, w3, salt: int, scale: int,
 def salt_pair(salt: int) -> np.ndarray:
     """Split a host-computed 64-bit salt into a (2,) uint32 [hi, lo] array."""
     return np.array([(salt >> 32) & M32, salt & M32], dtype=np.uint32)
+
+
+def salt_from_pair(pair) -> int:
+    """A (2,) [hi, lo] u32 salt pair (salt_pair's output) -> the 64-bit
+    host int the port's kernels take."""
+    return (int(pair[0]) & M32) << 32 | (int(pair[1]) & M32)

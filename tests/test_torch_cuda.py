@@ -308,3 +308,147 @@ def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
         device_source(200, 100_000, seed=1), 200, 100_000)
     np.testing.assert_array_equal(out.inter, out.inter.T)
     np.testing.assert_array_equal(np.diag(out.inter), out.counts)
+
+
+def test_k1_k7_seed_mode_match_plain_and_single_launches(dev):
+    """K1's seed-batch mode (8 seeds over one genome) against its plain
+    version and against 8 single-seed K1 launches; K7's seed-batch mode
+    against its plain version."""
+    rng = np.random.default_rng(12)
+    n, window = 262144, 20
+    codes, rid = genome_batch(rng, 1, n, [100000, 40, 150000])
+    masks = [spaced_seed_mask(window, 16, s) for s in range(8)]
+    salts = [boosthash.fmh_salt(m.lo, m.hi, window, 1, "modern")
+             for m in masks]
+    mw = np.stack([m.words_u32 for m in masks])
+    p = extract.pack_codes(torch.from_numpy(codes).to(dev))
+    r = torch.from_numpy(rid).to(dev)
+    nw = n - window + 1
+    args = dict(window=window, nw=nw, scale=50, variant="modern",
+                k_slots=_k_slots_for(nw, 50, 8192), out_words=2)
+    build.reset_launches()
+    got = extract.extract_compact(p, r, mw, salts, **args)
+    assert build.KERNELS["K1"].launches == 1
+    want = extract.extract_compact_plain(p, r, mw, salts, **args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for i in range(8):
+        one = extract.extract_compact(p, r, mw[i], salts[i], **args)
+        assert torch.equal(got[0][:, i:i + 1], one[0])
+        assert torch.equal(got[1][i:i + 1], one[1])
+    body = extract.packed_body(n)
+    pb = torch.from_numpy(extract.pack2bit(codes[0], body // 16)
+                          .view(np.int32)[None]).to(dev)
+    bounds = torch.tensor([[100000, 100040, body]], dtype=torch.int32,
+                          device=dev)
+    rid0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    vlen = torch.tensor([250040], dtype=torch.int32, device=dev)
+    raw = extract.extract_compact_raw(pb, bounds, rid0, vlen, mw, salts,
+                                      **args)
+    raw_plain = extract.extract_compact_raw_plain(pb, bounds, rid0, vlen, mw,
+                                                  salts, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(raw[0], raw_plain[0]) and torch.equal(raw[1],
+                                                             raw_plain[1])
+    assert torch.equal(raw[1], got[1])
+
+
+@pytest.mark.parametrize("window,k,variant", [(20, 16, "modern"),
+                                              (33, 25, "legacy"),
+                                              (64, 40, "modern")])
+def test_k11_matches_plain(dev, window, k, variant):
+    """K11 against its plain version at every window, valid or not."""
+    rng = np.random.default_rng(window)
+    codes, rid = genome_batch(rng, 2, 262144, [100000, 40, 100000])
+    mask = spaced_seed_mask(window, k, 1)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
+    c = torch.from_numpy(codes).to(dev)
+    r = torch.from_numpy(rid).to(dev)
+    args = dict(window=window, scale=20, variant=variant)
+    build.reset_launches()
+    got = extract.extract_filter(c, r, mask.words_u32, salt, **args)
+    want = extract.extract_filter_plain(c, r, mask.words_u32, salt, **args)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K11"].launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("kw,g,runs,run", [(2, 8, 2, 2048), (2, 1, 8, 32768),
+                                           (4, 3, 3, 1024), (1, 2, 4, 128)])
+def test_k8_matches_plain(dev, kw, g, runs, run):
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, g, runs * run),
+                      dtype=torch.int32, device=dev)
+    z[:, :, ::3] = z[:, :, 1:2]
+    z[:, :, -(run // 3):] = -1
+    assert torch.equal(sort.sort_runs(z, run), sort.sort_runs_plain(z, run))
+
+
+@pytest.mark.parametrize("kw,g,t,cap", [(2, 1, 4, 2048), (2, 2, 16, 8192),
+                                        (4, 1, 2, 256)])
+def test_k9_matches_plain(dev, kw, g, t, cap):
+    z = torch.full((kw, g, t * sort.TILE), -1, dtype=torch.int32, device=dev)
+    hit = torch.rand(g, t * sort.TILE, device=dev) < cap / (3 * t * sort.TILE)
+    z[:, hit] = torch.randint(0, 2 ** 31 - 1, (kw, int(hit.sum())),
+                              dtype=torch.int32, device=dev)
+    assert torch.equal(sort.sort_truncate(z, cap),
+                       sort.sort_truncate_plain(z, cap))
+
+
+@pytest.mark.parametrize("n,cap,scale,route,kernel", [
+    (65536, 512, 100, "runs", "K8"), (1 << 19, 512, 100, "tiled", "K9")])
+def test_fallback_finishes_on_the_gpu(dev, n, cap, scale, route, kernel):
+    """The dyn step at shapes that take the JAX `_finish_runs` (K8, K5)
+    and the tiled `_finish_candidates` (K9) gives the plain versions'
+    result and launches the kernel."""
+    from spaced_kmer_sketching_tpu_torch.ops import sketch as sk
+    rng = np.random.default_rng(n)
+    codes, rid = genome_batch(rng, 2, n, [32000, 15000])
+    mask = spaced_seed_mask(20, 16, 0)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, 20, 1, "modern")
+    p = torch.from_numpy(extract.pack2bit_rows(codes).view(np.int32))
+    r = torch.from_numpy(rid)
+    nw = n - 16
+    k_slots = _k_slots_for(nw, scale, cap)
+    assert sk.finish_route(extract.out_rows(nw) * k_slots, nw, k_slots, cap,
+                           scale, 2) == route
+    args = dict(n=n, kw=2, scale=scale, variant="modern", capacity=cap)
+    want = sketch_batch_packed_dyn(p, r, mask.words_u32, salt, 20, **args)
+    build.reset_launches()
+    got = sketch_batch_packed_dyn(p.to(dev), r.to(dev), mask.words_u32, salt,
+                                  20, **args)
+    assert build.KERNELS[kernel].launches == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_multiseed_and_single_genome_on_the_gpu_match_native(dev):
+    """sketch_packed_multiseed on the card (one K7 launch for 8 seeds)
+    and sketch_from_codes (K11, K4) against the native scalar pipeline."""
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
+    from spaced_kmer_sketching_tpu_torch.ops.sketch import sketch_from_codes
+    rng = np.random.default_rng(13)
+    lens = np.array([150000, 30, 80000], np.int64)
+    pk = PackedSeqs(rng.integers(0, 4, int(lens.sum())).astype(np.uint8),
+                    lens)
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
+                             device="cuda")
+    build.reset_launches()
+    out = sk.sketch_packed_multiseed(pk)
+    assert build.KERNELS["K7"].launches == 1 and len(out) == 8
+    for seed, s in enumerate(out):
+        one = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50,
+                                               mask_seed=seed), device="cpu")
+        assert s.mask == one.mask
+        np.testing.assert_array_equal(s.keys_u64(), native_sketch(one, pk))
+    rid = np.repeat(np.arange(3, dtype=np.int32), lens)
+    cfg = sk.config
+    got = sketch_from_codes(
+        torch.from_numpy(pk.codes).to(dev), torch.from_numpy(rid).to(dev),
+        sk.mask.words_u32, window=20, salt=sk.salt, scale=cfg.scale,
+        variant="modern", capacity=cfg.capacity_for(pk.codes.size))
+    assert build.KERNELS["K11"].launches == 1
+    c = int(got.count)
+    keys = got.keys[:c].cpu().numpy().view(np.uint32).astype(np.uint64)
+    u64 = np.stack([keys[:, 0] | keys[:, 1] << np.uint64(32),
+                    keys[:, 2] | keys[:, 3] << np.uint64(32)], axis=1)
+    np.testing.assert_array_equal(u64, native_sketch(sk, pk))

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from spaced_kmer_sketching_tpu.config import SketchConfig as JaxConfig
@@ -16,6 +17,7 @@ from spaced_kmer_sketching_tpu.models.fracminhash import (
     FracMinHashSketcher as JaxSketcher, Sketch as JaxSketch)
 from spaced_kmer_sketching_tpu.ops import sketch as jax_sketch
 from spaced_kmer_sketching_tpu.ops.extract import run_ids_from_lens
+from spaced_kmer_sketching_tpu.ops.pallas import sort as jax_sort
 from spaced_kmer_sketching_tpu.ops.pallas.extract import pack_genomes_np
 from spaced_kmer_sketching_tpu.utils import boosthash
 from spaced_kmer_sketching_tpu.utils.masks import spaced_seed_mask
@@ -27,18 +29,21 @@ from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
     FracMinHashSketcher, Sketch)
 from spaced_kmer_sketching_tpu_torch.ops import sketch as t_sketch
 from spaced_kmer_sketching_tpu_torch.ops import u64ops
-from spaced_kmer_sketching_tpu_torch.ops.cuda.extract import pack2bit_rows
+from spaced_kmer_sketching_tpu_torch.ops.cuda.extract import (out_rows,
+                                                              pack2bit_rows)
 
 from oracle import oracle_sketch
 
 
-def run_dyn(g, n, cap, scale, window, k, variant, runs, seed):
-    """The dyn-window sketch step through both packages."""
+def run_dyn(g, n, cap, scale, window, k, variant, runs, seed, rid=None):
+    """The dyn-window sketch step through both packages; `runs` are run
+    lengths from position 0, or `rid` the (g, n) run-id plane."""
     mask = spaced_seed_mask(window, k, 0)
     salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (g, n)).astype(np.uint32)
-    rid = np.stack([run_ids_from_lens(runs, n)] * g)
+    if rid is None:
+        rid = np.stack([run_ids_from_lens(runs, n)] * g)
     kw = t_sketch.finish_words(window)
     qc, qr, r = pack_genomes_np(codes, rid)
     want = jax_sketch.sketch_batch_packed_dyn(
@@ -88,20 +93,126 @@ def test_dyn_step_sort_all_finish_matches_jax(window, k, variant):
     k_slots = t_sketch._k_slots_for(nw_prog, scale, cap)
     m = (nw_prog + 32767) // 32768 * 256 * k_slots
     assert t_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g) is None
+    assert t_sketch.finish_route(m, nw_prog, k_slots, cap, scale, g) == \
+        "sort"
     run_dyn(g, n, cap, scale, window, k, variant, [1500, 900, n - 2400],
             seed=window)
 
 
-@pytest.mark.parametrize("n,window,scale,cap,g", [
-    (8388608, 20, 200, 65536, 8),     # config 1: two E. coli-sized genomes
-    (8388608, 50, 200, 65536, 2),
-    (4194304, 16, 200, 32768, 4),
-    (65536, 20, 50, 4096, 2),
-    (16384, 12, 5, 8192, 3),
+def route_of(n, window, scale, cap, g):
+    """(m, nw_prog, k_slots) of the dyn step, and the port's route."""
+    kw = t_sketch.finish_words(window)
+    nw_prog = n - (16 * (kw - 1) + 1) + 1
+    k_slots = t_sketch._k_slots_for(nw_prog, scale, cap)
+    m = out_rows(nw_prog) * k_slots
+    return m, nw_prog, k_slots, t_sketch.finish_route(m, nw_prog, k_slots,
+                                                      cap, scale, g)
+
+
+def test_finish_runs_fault_is_fixed():
+    """The fault the port had: this input takes the JAX `_finish_runs`
+    (K8), whose first block holds more kept keys than its share of 256,
+    and the JAX step reports raw_kept 513 and count 257.  The port sent
+    the shape to its sort-everything finish (raw_kept 341, count 341,
+    other keys); it now routes as JAX does and gives the same keys, count
+    and raw_kept."""
+    n, cap, scale, window = 65536, 512, 100, 20
+    assert route_of(n, window, scale, cap, 1)[3] == "runs"
+    got = run_dyn(1, n, cap, scale, window, 16, "modern", [32000], seed=1)
+    assert int(got.raw_kept[0]) == 513 and int(got.count[0]) == 257
+
+
+@pytest.fixture
+def jax_k9_interpret(monkeypatch):
+    """The JAX tiled `_finish_candidates` calls sort_truncate_128 without
+    its interpret flag; on the CPU backend it runs only in interpret mode."""
+    orig = jax_sort.sort_truncate_128
+    monkeypatch.setattr(jax_sort, "sort_truncate_128",
+                        lambda keys, capacity: orig(keys, capacity,
+                                                    interpret=True))
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_tiled_finish_matches_jax(jax_k9_interpret, sparse):
+    """Two tiles of 32,768 candidates (n = 2^19, k_slots 16, capacity
+    512): the JAX tiled `_finish_candidates` (K9).  Sparse: two short runs,
+    one in each tile, and no tile exceeds its share; dense: one run over
+    the whole genome, both tiles overflow and raw_kept says so."""
+    n, cap, scale, window = 1 << 19, 512, 100, 20
+    assert route_of(n, window, scale, cap, 1)[3] == "tiled"
+    rid = np.full((1, n), -1, np.int32)
+    if sparse:
+        rid[0, :15000] = 0
+        rid[0, 300000:318000] = 1
+    else:
+        rid[0, :] = 0
+    got = run_dyn(1, n, cap, scale, window, 16, "modern", None, seed=2,
+                  rid=rid)
+    assert (int(got.raw_kept[0]) > cap) != sparse
+
+
+def jax_route(m, nw, k_slots, cap, scale, g, kw):
+    """The route the JAX `_finish_dispatch` takes for these shapes: the
+    finishes are replaced by recorders and traced abstractly."""
+    seen = []
+
+    def dummy(shape):
+        return jax_sketch.SketchBatch(
+            keys=jnp.zeros(shape + (cap, 4), jnp.uint32),
+            count=jnp.zeros(shape, jnp.int32),
+            raw_kept=jnp.zeros(shape, jnp.int32))
+
+    def tree(*a, **k):
+        seen.append("tree")
+        return dummy((g,))
+
+    def runs(*a, **k):
+        seen.append("runs")
+        return dummy(())
+
+    def tiled(keys, capacity):
+        seen.append("tiled")
+        return jnp.zeros((capacity, keys.shape[1]), jnp.uint32)
+
+    def sort_rows(words, extra=()):
+        seen.append("sort")
+        return list(words), ()
+
+    patches = [(jax_sketch, "_finish_tree", tree),
+               (jax_sketch, "_finish_runs", runs),
+               (jax_sort, "sort_truncate_128", tiled),
+               (jax_sketch, "_sort_rows", sort_rows)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        words = [jax.ShapeDtypeStruct((g, m), jnp.uint32)] * kw
+        rowcnt = jax.ShapeDtypeStruct((g, m // k_slots), jnp.int32)
+        jax.eval_shape(lambda w, r: jax_sketch._finish_dispatch(
+            w, r, nw, k_slots, cap, scale, True), words, rowcnt)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return seen[0]
+
+
+@pytest.mark.parametrize("n,window,scale,cap,g,route", [
+    (8388608, 20, 200, 65536, 8, "tree"),   # config 1: E. coli-sized
+    (8388608, 50, 200, 65536, 2, "tree"),
+    (4194304, 16, 200, 32768, 4, "tree"),
+    (65536, 20, 50, 4096, 2, "tree"),
+    (16384, 12, 5, 8192, 3, "tree"),
+    (65536, 20, 100, 512, 1, "runs"),       # the fault's input
+    (65536, 20, 200, 512, 8, "runs"),       # phage lambda, capacity 512
+    (4096, 20, 20, 1024, 3, "sort"),
+    (524288, 20, 100, 512, 1, "tiled"),
+    (2097152, 20, 200, 2048, 1, "tiled"),   # 2 Mnt, capacity 2048
+    (8388608, 20, 200, 8192, 1, "tiled"),
 ])
-def test_planner_matches_jax(n, window, scale, cap, g):
+def test_planner_matches_jax(n, window, scale, cap, g, route):
     """The port keeps the JAX planner's shapes: key words, slots, the
-    compaction chain and its decision, so intermediates line up."""
+    compaction chain and its decision, and the finish route, so
+    intermediates line up."""
     kw = t_sketch.finish_words(window)
     assert kw == jax_sketch.finish_words(window)
     nw_prog = n - (16 * (kw - 1) + 1) + 1
@@ -112,6 +223,8 @@ def test_planner_matches_jax(n, window, scale, cap, g):
     m = (nw_prog + 32767) // 32768 * 256 * k_slots
     assert t_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g) == \
         jax_sketch._tree_chain(m, 128.0 / k_slots, scale, cap, g)
+    assert t_sketch.finish_route(m, nw_prog, k_slots, cap, scale, g) == \
+        jax_route(m, nw_prog, k_slots, cap, scale, g, kw) == route
 
 
 def packed_genomes(seed):
