@@ -13,8 +13,9 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      (n = 8,388,608 windows for kw = 1..4; the compaction stages the
      planner gives; the sort at 65,536 keys, G = 2); K5 and K6 at config
      2's shapes (128 runs of 32,768 entries, pw 2, gp 128), at pw 5 and at
-     gp 2048 (2,048 runs of 2,048); K10 and K6 (split) at the blocked
-     schedule's macro-tile (two presorted blocks of 128 x 32,768, gp 256);
+     gp 2048 (2,048 runs of 2,048); K10 (without and with the column
+     block's gid offset) and K6 (split) at the blocked schedule's
+     macro-tile (two presorted blocks of 128 x 32,768, gp 256);
   3. write synthetic FASTAs from --seed (8 genomes of 4-6 Mnt with a few
      records and N-runs, genome 1 a 3%-mutated copy of genome 0) and run
      the CLI (`driver.main --window 20 --k 16 --device cuda`) on all 8, then
@@ -26,7 +27,9 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      the device Gram (K5, K6);
   6. all_pairs_intersections on 4,096 synthetic sketches of ~25,000 40-bit
      keys (capacity 32,768) drawn from 64 clade pools: the blocked
-     block-cache route (K5 per block, K10 + K6 per macro-tile);
+     block-cache route (K5 per block, K10 + K6 per macro-tile), then once
+     more under torch.profiler for the device time and launches of K5's
+     and K10's kernels;
   7. BASELINE config 5: two synthetic chromosomes of 268.5-272 Mnt (B a
      1.2%-substituted copy of A, each with N-gaps of 10 kb to 1 Mnt, some
      on segment edges), FASTAs of 80-nt lines of 2^28 bytes or more, through
@@ -36,7 +39,8 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      (8 clades), which routes through the one-flow DevicePipeline (K7, the
      finish, K5 presort per block, K10 + K6 tiles), against the two-step
      path's CSV byte for byte; (b) DevicePipeline.all_pairs on 10,240
-     genomes of 1.55 Mnt drawn on the device (device_source);
+     genomes of 1.55 Mnt drawn on the device (device_source), then once
+     more under torch.profiler, as phase 6;
   9. BASELINE config 3: 8 spaced seeds (mask seeds 0-7, w=20, k=16) over
      each of phase 3's genomes 0 and 1 through sketch_packed_multiseed
      (one compact upload and one K7 seed-batch launch a genome);
@@ -72,7 +76,9 @@ Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}: launches on the paths, max_abs_err, kernel, plain and
 torch.sort-yardstick times, and the bound from the kernel's bytes or, for
 K1, K7 and K11, its instructions at its timed shape, counted from the
-compiled code with cuobjdump), and as the LAST line
+compiled code with cuobjdump; for K5, K9 and K10 also the device launches
+of one call, from torch.profiler, and the fraction of the bound), a line
+of the profiled K5 and K10 sums of phases 6 and 8(b), and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -113,6 +119,9 @@ LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
 # so no instruction stream runs faster than 67e12 / 2 thread-instructions
 # a second.  The extract kernels' instructions a window are counted from
 # their SASS (extract_op_counts).
+# K5's and K10's kernels in csrc/sort.cu, by the names the profiler shows.
+MERGE_KERNELS = {"K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
+                 "K10": ("merge_pair_kernel",)}
 HBM_BYTES_PER_S = 3.35e12
 INSTRUCTIONS_PER_S = 67e12 / 2
 # Probes of csrc/extract.cu's device functions, compiled like the library
@@ -198,6 +207,56 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_kernels(fn) -> dict:
+    """Run fn() once under torch.profiler: {kernel: [device ms, launches]}
+    of the port's kernels (those in namespace sks), summed over template
+    instances.  Only device activity is traced, which keeps the profiled
+    run short (phase 8(b) ~6 s on an H100 80GB HBM3 at 700 W, ~24 s with
+    the host's ops traced too)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "sks::" not in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        m = re.search(r"sks::(?:\(anonymous namespace\)::)?(\w+)", e.key)
+        name = m.group(1) if m else e.key
+        acc = out.setdefault(name, [0.0, 0])
+        acc[0] += us / 1e3
+        acc[1] += e.count
+    return out
+
+
+def device_launches(fn) -> int:
+    """Kernel launches on the device of one fn() call (torch.profiler)."""
+    return sum(n for _, n in profile_kernels(fn).values())
+
+
+def profile_path(what: str, fn) -> dict:
+    """A second, profiled run of a path after its timed one: prints the
+    summed device time and launches of K5's and K10's kernels and of every
+    kernel of the port."""
+    t0 = time.perf_counter()
+    kernels = profile_kernels(fn)
+    wall = time.perf_counter() - t0
+    sums = {key: [sum(kernels.get(n, [0.0, 0])[i] for n in names)
+                  for i in (0, 1)] for key, names in MERGE_KERNELS.items()}
+    print(f"{what} profile ({wall:.3f} s wall, profiled): K5 "
+          f"{sums['K5'][0]:.3f} ms device over "
+          f"{sums['K5'][1]} launches, K10 {sums['K10'][0]:.3f} ms over "
+          f"{sums['K10'][1]} launches; every kernel [ms, launches] "
+          + json.dumps({k: [round(v[0], 3), v[1]]
+                        for k, v in sorted(kernels.items())}))
+    return sums
 
 
 def nbytes(*tensors) -> int:
@@ -640,6 +699,8 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
             key64 = sort_key64(z)
             res["K9"] = dict(
                 ms=timer(lambda: sort.sort_truncate(z, cap), 20),
+                device_launches=device_launches(
+                    lambda: sort.sort_truncate(z, cap)),
                 plain_ms=timer(lambda: sort.sort_truncate_plain(z, cap), 5),
                 library_ms=timer(lambda: torch.sort(key64, dim=-1), 20),
                 **bound(nbytes(z, got)))
@@ -734,6 +795,8 @@ def phase_gram_kernels(dev, timer, seed):
             key64 = sort_key64(runs.reshape(runs.shape[0], -1))
             res["K5"].update(
                 ms=timer(lambda: sort.merge_sorted_runs(runs, cap // 128), 10),
+                device_launches=device_launches(
+                    lambda: sort.merge_sorted_runs(runs, cap // 128)),
                 plain_ms=timer(lambda: sort.merge_sorted_runs_plain(
                     runs, cap // 128), 3),
                 library_ms=timer(lambda: torch.sort(key64), 10),
@@ -753,19 +816,31 @@ def phase_gram_kernels(dev, timer, seed):
                                 cap // 128)
     pb = sort.merge_sorted_runs(packed_runs(keys[block:], kb, gidbits),
                                 cap // 128)
-    pb[0] += (pb[-1] >= 0).to(torch.int32) * block     # column gids + block
-    merged = sort.merge_pair_streams(pa, pb)
-    hold("K10", merged, sort.merge_pair_streams_plain(pa, pb),
-         f"two blocks of {block} x {cap}, pw {pa.shape[0]}")
+    hold("K10", sort.merge_pair_streams(pa, pb),
+         sort.merge_pair_streams_plain(pa, pb),
+         f"two blocks of {block} x {cap}, pw {pa.shape[0]}, no offset")
+    # column gids + block, as gram_pair_tiles calls K10
+    merged = sort.merge_pair_streams(pa, pb, b_gid_offset=block)
+    hold("K10", merged,
+         sort.merge_pair_streams_plain(pa, pb, b_gid_offset=block),
+         f"two blocks of {block} x {cap}, pw {pa.shape[0]}, offset {block}")
     tile = gram_tiles.gram_tile_scan(merged, gidbits, 2 * block, split=block)
     hold("K6", tile, gram_tiles.gram_tile_scan_plain(
         merged, gidbits, 2 * block, split=block),
         f"split {block} of gp {2 * block}, tile sum {int(tile.sum())}")
-    key64 = sort_key64(torch.cat([pa, pb], dim=1).reshape(pa.shape[0], -1))
+    pbs = pb.clone()
+    pbs[0] += (pb[-1] >= 0).to(torch.int32) * block
+    key64 = sort_key64(torch.cat([pa, pbs], dim=1).reshape(pa.shape[0], -1))
+    del pbs
+
+    def pair():
+        return sort.merge_pair_streams(pa, pb, b_gid_offset=block)
     res["K10"].update(
-        ms=timer(lambda: sort.merge_pair_streams(pa, pb), 10),
-        plain_ms=timer(lambda: sort.merge_pair_streams_plain(pa, pb), 3),
+        ms=timer(pair, 10),
+        plain_ms=timer(lambda: sort.merge_pair_streams_plain(
+            pa, pb, b_gid_offset=block), 3),
         library_ms=timer(lambda: torch.sort(key64), 10),
+        device_launches=device_launches(pair),
         **bound(nbytes(pa, pb, merged)))
     args = (merged, gidbits, 2 * block)
     split_ms = timer(lambda: gram_tiles.gram_tile_scan(*args, split=block), 10)
@@ -1059,6 +1134,8 @@ def run_blocked(rng, pool) -> dict:
           + json.dumps(launches))
     for key in ("K5", "K6", "K10"):
         need(launches[key] > 0, f"{key} was not launched by phase 6")
+    prof = profile_path("phase 6", lambda: sk.all_pairs_intersections(
+        sketches))
 
     t0 = time.perf_counter()
     counts = np.array([s.count for s in sketches])
@@ -1083,7 +1160,7 @@ def run_blocked(rng, pool) -> dict:
     print(f"checks: diagonal, symmetry and {len(pairs)} pairs (blocks 0 x "
           f"{other} whole, {nonzero} nonzero) equal native merges in "
           f"{time.perf_counter() - t0:.3f} s")
-    return {"launches": launches, "wall_s": wall}
+    return {"launches": launches, "wall_s": wall, "profile": prof}
 
 
 # --- phases 9-10: BASELINE config 3, the single-genome step, the fallbacks --
@@ -1540,6 +1617,7 @@ def run_config4_device(seed, pool) -> dict:
           + json.dumps(launches))
     for key in ("K7", "K5", "K6", "K10"):
         need(launches[key] > 0, f"{key} was not launched by phase 8b")
+    prof = profile_path("phase 8b", lambda: pipe.all_pairs(src, g, n))
 
     t0 = time.perf_counter()
     out = res.inter
@@ -1570,7 +1648,8 @@ def run_config4_device(seed, pool) -> dict:
           f"64 pairs equal the native pipeline in "
           f"{time.perf_counter() - t0:.3f} s; counts "
           f"{int(res.counts.min())}-{int(res.counts.max())}")
-    return {"launches": launches, "wall_s": wall, "phases": res.phases}
+    return {"launches": launches, "wall_s": wall, "phases": res.phases,
+            "profile": prof}
 
 
 def main(argv=None) -> int:
@@ -1681,6 +1760,10 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if key in ("K5", "K9", "K10"):
+            kernels[-1].update(
+                device_launches_per_call=r["device_launches"],
+                fraction_of_bound=r["bound_ms"] / r["ms"])
     seeds, seeds7 = kres["K1 seeds"], kres["K7 seeds"]
     print(f"K1 seed-batch mode ({CONFIG3_SEEDS} seeds, n = 2^23): "
           f"{seeds['ms']} ms, {CONFIG3_SEEDS} single-seed launches "
@@ -1689,6 +1772,10 @@ def main(argv=None) -> int:
           f"(config 3's path) {seeds7['ms']} ms, plain {seeds7['plain_ms']} "
           f"ms, bound {seeds7['bound_ms']} ms ({seeds7['bound_by']}); {smi}")
     print(json.dumps({"kernels": kernels}))
+    print(f"merge paths (profiler): phase 6 (G = {BLOCKED_GENOMES}) K5 "
+          f"{blk['profile']['K5']}, K10 {blk['profile']['K10']}; phase 8b "
+          f"(G = {CONFIG4_GENOMES}) K5 {cfg4b['profile']['K5']}, K10 "
+          f"{cfg4b['profile']['K10']} [device ms, launches]; {smi}")
     s_ms, c_ms = run["config1_warm"]
     print(f"config 1 (2 genomes, w=20, k=16, warm): sketching {s_ms} ms, "
           f"comparison {c_ms} ms; {smi}")

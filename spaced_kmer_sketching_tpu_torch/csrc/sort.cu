@@ -1,7 +1,7 @@
 // K4: batched lexicographic ascending sort of multi-word keys, K8: the
-// same sort with alternating run directions, K5 / K10: merges of
-// ascending runs, and K9: tile sorts cut to a share and merged (the
-// second half of this file).
+// same sort with alternating run directions (both bitonic networks), K5 /
+// K10: merge-path merges of ascending runs, and K9: tile sorts cut to a
+// share and merged by K5 (the second half of this file).
 //
 // K4 replaces spaced_kmer_sketching_tpu/ops/pallas/sort.py::bitonic_sort_128
 // (kernels _sort_kernel, _tile_sort_kernel, _merge_round_kernel,
@@ -184,29 +184,48 @@ int sort_rows(const uint32_t* in, uint32_t* out, int64_t g, int64_t n,
 // :355/:379, _merge_finish_kernel via _merge_finish :337/:343, and the XLA
 // passes _merge_pass_xla :391).  One stream of n = R * L entries (pw <= 5
 // planes, word pw-1 most significant; n and L powers of two) whose R runs
-// of L entries are each ascending becomes one ascending stream.
+// of L entries are each ascending becomes one ascending stream, or one per
+// segment of seg entries.
 // K10 merge_pair: replaces sort.py::merge_pair_streams (:432; first pass
 // fused XLA :452-456, the rest _merge_finish_kernel): two ascending
-// streams of N entries become one of 2N.
+// streams of N entries become one of 2N, stream B's valid gids shifted by
+// an offset on the way in (the JAX package's gram.py:704-706 fuses the
+// same shift into its first pass).
 //
-// Both run the stages k = 2L .. n of a bitonic sort in its all-ascending
-// form: a stage starts with a FLIP pass that pairs entry i of each k-block
-// with its mirror k-1-i (so two ascending halves need no reversal), then
-// half-cleaner passes at distances k/4 .. 1, all ascending.  The runs are
-// never re-sorted: stages below 2L are skipped.  The TPU kernel reverses
-// odd runs into bitonic pairs instead; the flip folds that reversal into
-// the first pass's loads.  K10 is one stage (k = 2N) whose flip pass reads
-// A[i] and B[N-1-i] from the two input buffers.
+// Both are merge paths.  The primitive (merge_path_tile) writes the
+// outputs [d0, d0 + tile) of merge(A, B), tile <= 2,048, from one CTA of
+// 256 threads:
+//   * CTA split: warps 0 and 1 find where the diagonals d0 and d0 + tile
+//     cross the merge path, by a 32-way search in device memory (32 probes
+//     a round, a ballot narrows the range 32-fold: 3 rounds for a run of
+//     32,768);
+//   * loads: the CTA's A and B slices (tile entries in all) go to shared
+//     memory plane by plane, coalesced;
+//   * thread merge: each thread searches its own diagonal in shared
+//     memory, then merges its 8 outputs serially in registers;
+//   * store: outputs are staged through shared memory (padded one word in
+//     32, so the stride-8 writes hit 32 banks) and stored coalesced.
+// Ties go to A everywhere (A[i] <= B[j] takes A[i]); equal entries are
+// equal in every plane, so any consistent rule gives the same bytes.
+// K10 is one launch over its 2N outputs.  K5 is one launch per merge level
+// (pairs of runs never cross a segment), its levels alternating between
+// out and a scratch buffer the caller gives, the last writing out; runs
+// shorter than the 2,048-entry tile first go through their levels
+// together, one launch, in shared memory (each entry's place is its index
+// plus its rank in the other run).  Offsets and diagonals are int64 (n
+// reaches 2,048 * 32,768 = 67M entries).
 //
-// What bounds them on an H100: bytes.  Every global pass reads and writes
-// each entry once (n * pw * 8 bytes; 67 MB at config 2's n = 128 * 32,768,
-// pw = 2, ~20 us at 3.35 TB/s).  As in K4, stages and distances whose
-// pairs stay inside a 2,048-entry tile run in shared memory (one launch
-// per stage for all distances below the tile); the rest are one launch
-// per distance.  At config 2 that is 7 stages: 7 flip passes, 49 global
-// half-cleaners and 7 tile finishes.  Index arithmetic is int64 (n reaches
-// 2,048 * 32,768 = 67M entries).  Fusing several distances per pass in
-// registers is later work.
+// What bounds them on an H100: bytes.  A level reads and writes each entry
+// once (n * pw * 8 bytes: 67 MB at config 2's n = 128 * 32,768, pw = 2,
+// ~20 us at the H100 SXM's published 3.35 TB/s, 700 W), so config 2's 7
+// levels need ~0.14 ms, and K10 at
+// the blocked schedule's macro-tile (two streams of 2^22, pw 2) one pass
+// over 134 MB, ~0.04 ms.  The CTA search adds 3 dependent device reads
+// per CTA, which the SM's other CTAs overlap; each pass measures about
+// half its byte bound on an H100 80GB HBM3 at 700 W (PERF.md), and
+// issuing a thread's 8 loads before its stores did not help there.
+// Small calls are launch bound.  A 4-way merge per pass would halve K5's
+// levels: later work.
 //
 // K8 sort_runs: replaces sort.py::sort_runs_128 (:220; kernels
 // _multi_run_sort_kernel :189 and, for odd run layouts, _tile_sort :172).
@@ -220,115 +239,241 @@ int sort_rows(const uint32_t* in, uint32_t* out, int64_t g, int64_t n,
 // for K4 (each pass reads and writes every entry), and at the finish's
 // small shapes launch latency.
 
-// Half-cleaners at distances j0, j0/2, ..., 1 on the tile, ascending.
-template <int KW>
-__device__ void clean_smem(uint32_t* sm, int tile, int j0) {
-  for (int j = j0; j > 0; j >>= 1) {
-    for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-      const int i = 2 * p - (p & (j - 1));
-      exchange_smem<KW>(sm, tile, i, i + j, true);
+constexpr int MERGE_THREADS = 256;
+constexpr int MERGE_E = 8;                              // outputs a thread
+constexpr int MERGE_TILE = MERGE_THREADS * MERGE_E;     // outputs a CTA
+constexpr int MERGE_PLANE = MERGE_TILE + MERGE_TILE / 32;  // padded plane
+static_assert(5 * MERGE_PLANE * sizeof(uint32_t) <= 48 * 1024,
+              "pw 5 must fit the default 48 KB of dynamic shared memory");
+
+// Shared-memory slot of tile entry e: one pad word after every 32.
+__device__ __forceinline__ int spad(int e) { return e + (e >> 5); }
+
+// Entry i of a stacked stream (plane stride `plane`).  A nonzero `off` is
+// added to word 0 of a valid entry (top word's sign bit clear): K10's gid
+// shift of stream B.  Sentinels stay all-ones.
+template <int PW>
+__device__ __forceinline__ void load_key(const uint32_t* p, int64_t plane,
+                                         int64_t i, uint32_t off,
+                                         uint32_t (&k)[PW]) {
+#pragma unroll
+  for (int q = 0; q < PW; ++q) k[q] = p[q * plane + i];
+  if (off != 0 && static_cast<int32_t>(k[PW - 1]) >= 0) k[0] += off;
+}
+
+template <int PW>
+__device__ __forceinline__ void smem_key(const uint32_t* sm, int e,
+                                         uint32_t (&k)[PW]) {
+#pragma unroll
+  for (int q = 0; q < PW; ++q) k[q] = sm[q * MERGE_PLANE + spad(e)];
+}
+
+template <int PW>
+__device__ __forceinline__ void smem_store(uint32_t* sm, int e,
+                                           const uint32_t (&k)[PW]) {
+#pragma unroll
+  for (int q = 0; q < PW; ++q) sm[q * MERGE_PLANE + spad(e)] = k[q];
+}
+
+// How many of the first d outputs of merge(A, B) come from A (na, nb
+// entries; ties to A): the first i with B[d-1-i] < A[i].  One warp, 32
+// probes a round; every lane returns the answer.
+template <int PW>
+__device__ int64_t warp_split(const uint32_t* a, int64_t plane_a, int64_t na,
+                              const uint32_t* b, int64_t plane_b, int64_t nb,
+                              uint32_t off, int64_t d) {
+  const int lane = threadIdx.x & 31;
+  int64_t lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+  while (hi > lo) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t i = lo + lane * step;
+    bool take_a = false;
+    if (i < hi) {
+      uint32_t x[PW], y[PW];
+      load_key<PW>(a, plane_a, i, 0, x);
+      load_key<PW>(b, plane_b, d - 1 - i, off, y);
+      take_a = !lex_less<PW>(y, x);
+    }
+    // take_a holds on a prefix of the lanes: the answer lies after the
+    // last lane that holds and at or before the first that does not
+    const int c = __popc(__ballot_sync(FULL, take_a));
+    const int64_t next_lo = c > 0 ? lo + (c - 1) * step + 1 : lo;
+    const int64_t next_hi = lo + c * step;
+    hi = next_hi < hi ? next_hi : hi;
+    lo = next_lo;
+  }
+  return lo;
+}
+
+// The same split inside the tile in shared memory: A at [0, na), B at
+// [na, na + nb).
+template <int PW>
+__device__ int smem_split(const uint32_t* sm, int na, int nb, int d) {
+  int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    uint32_t x[PW], y[PW];
+    smem_key<PW>(sm, mid, x);
+    smem_key<PW>(sm, na + d - 1 - mid, y);
+    if (lex_less<PW>(y, x)) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  return lo;
+}
+
+// Writes outputs [d0, d0 + tile) of merge(A, B) to out[0, tile) (plane
+// stride out_plane); B's valid entries are read with `off` added.
+template <int PW>
+__device__ void merge_path_tile(uint32_t* sm, const uint32_t* a,
+                                int64_t plane_a, int64_t na,
+                                const uint32_t* b, int64_t plane_b,
+                                int64_t nb, uint32_t off, int64_t d0,
+                                int tile, uint32_t* out, int64_t out_plane) {
+  __shared__ int64_t split[2];
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int64_t s = warp_split<PW>(a, plane_a, na, b, plane_b, nb, off,
+                                     d0 + warp * tile);
+    if ((threadIdx.x & 31) == 0) split[warp] = s;
+  }
+  __syncthreads();
+  const int64_t i0 = split[0], j0 = d0 - i0;
+  const int ta = static_cast<int>(split[1] - i0), tb = tile - ta;
+  for (int e = threadIdx.x; e < tile; e += MERGE_THREADS) {
+    uint32_t k[PW];
+    if (e < ta) {
+      load_key<PW>(a, plane_a, i0 + e, 0, k);
+    } else {
+      load_key<PW>(b, plane_b, j0 + (e - ta), off, k);
+    }
+    smem_store<PW>(sm, e, k);
+  }
+  __syncthreads();
+
+  const int e0 = threadIdx.x * MERGE_E;
+  const int left = tile - e0;
+  const int cnt = left < 0 ? 0 : (left < MERGE_E ? left : MERGE_E);
+  uint32_t res[MERGE_E][PW];
+  if (cnt > 0) {
+    int i = smem_split<PW>(sm, ta, tb, e0), j = e0 - i;
+    uint32_t x[PW] = {}, y[PW] = {};
+    if (i < ta) smem_key<PW>(sm, i, x);
+    if (j < tb) smem_key<PW>(sm, ta + j, y);
+#pragma unroll
+    for (int k = 0; k < MERGE_E; ++k) {
+      if (k < cnt) {
+        const bool take_a = j >= tb || (i < ta && !lex_less<PW>(y, x));
+#pragma unroll
+        for (int q = 0; q < PW; ++q) res[k][q] = take_a ? x[q] : y[q];
+        if (take_a) {
+          if (++i < ta) smem_key<PW>(sm, i, x);
+        } else {
+          if (++j < tb) smem_key<PW>(sm, ta + j, y);
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < MERGE_E; ++k) {
+    if (k < cnt) smem_store<PW>(sm, e0 + k, res[k]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < tile; e += MERGE_THREADS) {
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      out[q * out_plane + e] = sm[q * MERGE_PLANE + spad(e)];
+    }
+  }
+}
+
+// One K5 level: pairs of ascending runs of `run` entries (2 * run a
+// multiple of MERGE_TILE), one MERGE_TILE of outputs per CTA.
+template <int PW>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_level_kernel(
+    const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+    int64_t total, int64_t run) {
+  extern __shared__ uint32_t sm[];
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x) * MERGE_TILE;
+  const int64_t base = o0 & ~(2 * run - 1);
+  merge_path_tile<PW>(sm, in + base, total, run, in + base + run, total, run,
+                      0, o0 - base, MERGE_TILE, out + o0, total);
+}
+
+// K10: the merge of a and b (half entries each, b shifted by off), `tile`
+// outputs per CTA.
+template <int PW>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_pair_kernel(
+    const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+    uint32_t* __restrict__ out, int64_t half, uint32_t off, int tile) {
+  extern __shared__ uint32_t sm[];
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x) * tile;
+  merge_path_tile<PW>(sm, a, half, half, b, half, half, off, o0, tile,
+                      out + o0, 2 * half);
+}
+
+// K5's levels run, 2 * run, ..., tile / 2 on each tile of `tile` (<=
+// MERGE_TILE) entries in shared memory.  An entry's place in its pair's
+// merge is its index in its run plus the count of the other run's entries
+// before it: those below it for an entry of A, those at or below it for
+// an entry of B (ties to A).
+template <int PW>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_runs_smem_kernel(
+    const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+    int64_t total, int run, int tile) {
+  extern __shared__ uint32_t sm[];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
+  for (int e = threadIdx.x; e < tile; e += MERGE_THREADS) {
+#pragma unroll
+    for (int q = 0; q < PW; ++q) {
+      sm[q * MERGE_PLANE + spad(e)] = in[q * total + base + e];
+    }
+  }
+  __syncthreads();
+  for (int len = run; len < tile; len <<= 1) {
+    uint32_t key[MERGE_E][PW];
+    int dst[MERGE_E];
+#pragma unroll
+    for (int k = 0; k < MERGE_E; ++k) {
+      const int e = threadIdx.x + k * MERGE_THREADS;
+      if (e < tile) {
+        smem_key<PW>(sm, e, key[k]);
+        const int pair = e & ~(2 * len - 1);
+        const bool in_a = e - pair < len;
+        const int other = in_a ? pair + len : pair;
+        int lo = 0, hi = len;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          uint32_t y[PW];
+          smem_key<PW>(sm, other + mid, y);
+          const bool before = in_a ? lex_less<PW>(y, key[k])
+                                   : !lex_less<PW>(key[k], y);
+          if (before) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        dst[k] = e - (in_a ? 0 : len) + lo;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < MERGE_E; ++k) {
+      if (threadIdx.x + k * MERGE_THREADS < tile) {
+        smem_store<PW>(sm, dst[k], key[k]);
+      }
     }
     __syncthreads();
   }
-}
-
-// Stage k (k <= tile) on the tile: the flip pass, then the half-cleaners.
-template <int KW>
-__device__ void merge_stage_smem(uint32_t* sm, int tile, int k) {
-  const int half = k >> 1;
-  for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-    const int q = p & (half - 1);
-    const int base = (p - q) * 2;
-    exchange_smem<KW>(sm, tile, base + q, base + k - 1 - q, true);
-  }
-  __syncthreads();
-  clean_smem<KW>(sm, tile, k >> 2);
-}
-
-// Stages k0 .. tile, whole inside each tile: reads in, writes out.
-template <int KW>
-__global__ void __launch_bounds__(SORT_THREADS) merge_tile_kernel(
-    const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-    int64_t total, int k0, int tile) {
-  extern __shared__ uint32_t sm[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  load_tile<KW>(sm, in + base, total, tile);
-  for (int k = k0; k <= tile; k <<= 1) merge_stage_smem<KW>(sm, tile, k);
-  store_tile<KW>(sm, out + base, total, tile);
-}
-
-// The half-cleaners j0 .. 1 of a stage, in place, one tile per block.
-template <int KW>
-__global__ void __launch_bounds__(SORT_THREADS) clean_tile_kernel(
-    uint32_t* __restrict__ data, int64_t total, int j0, int tile) {
-  extern __shared__ uint32_t sm[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  load_tile<KW>(sm, data + base, total, tile);
-  clean_smem<KW>(sm, tile, j0);
-  store_tile<KW>(sm, data + base, total, tile);
-}
-
-template <int KW>
-__device__ __forceinline__ void order_pair(const uint32_t* src_i,
-                                           const uint32_t* src_p,
-                                           int64_t src_plane, uint32_t* dst,
-                                           int64_t dst_plane, int64_t i,
-                                           int64_t p) {
-  uint32_t a[KW], b[KW];
+  for (int e = threadIdx.x; e < tile; e += MERGE_THREADS) {
 #pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    a[q] = src_i[q * src_plane];
-    b[q] = src_p[q * src_plane];
-  }
-  const bool swap = lex_less<KW>(b, a);
-#pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    dst[q * dst_plane + i] = swap ? b[q] : a[q];
-    dst[q * dst_plane + p] = swap ? a[q] : b[q];
-  }
-}
-
-// The flip pass of stage k over the whole stream; in may equal out (each
-// thread reads its own pair before writing it).
-template <int KW>
-__global__ void flip_pass_kernel(const uint32_t* in, uint32_t* out,
-                                 int64_t total, int64_t k) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total / 2) return;
-  const int64_t half = k >> 1;
-  const int64_t q = p & (half - 1);
-  const int64_t base = (p - q) * 2;
-  const int64_t i = base + q, partner = base + k - 1 - q;
-  order_pair<KW>(in + i, in + partner, total, out, total, i, partner);
-}
-
-// A half-cleaner pass at distance j, in place.
-template <int KW>
-__global__ void clean_pass_kernel(uint32_t* data, int64_t total, int64_t j) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total / 2) return;
-  const int64_t i = 2 * p - (p & (j - 1));
-  order_pair<KW>(data + i, data + i + j, total, data, total, i, i + j);
-}
-
-// K10's flip pass: out[i] = min(A[i], B[N-1-i]), out[N+i] = the max.
-template <int KW>
-__global__ void pair_flip_kernel(const uint32_t* __restrict__ a,
-                                 const uint32_t* __restrict__ b,
-                                 uint32_t* __restrict__ out, int64_t half) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= half) return;
-  uint32_t x[KW], y[KW];
-#pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    x[q] = a[q * half + p];
-    y[q] = b[q * half + half - 1 - p];
-  }
-  const bool swap = lex_less<KW>(y, x);
-#pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    out[q * 2 * half + p] = swap ? y[q] : x[q];
-    out[q * 2 * half + half + p] = swap ? x[q] : y[q];
+    for (int q = 0; q < PW; ++q) {
+      out[q * total + base + e] = sm[q * MERGE_PLANE + spad(e)];
+    }
   }
 }
 
@@ -336,64 +481,66 @@ inline unsigned pass_blocks(int64_t pairs) {
   return static_cast<unsigned>((pairs + PASS_THREADS - 1) / PASS_THREADS);
 }
 
-// The rest of stage k once its flip pass has run: global half-cleaners
-// down to the tile size, then one tile launch for the distances below.
-template <int KW>
-int finish_stage(uint32_t* data, int64_t total, int64_t k, int tile,
-                 cudaStream_t stream) {
-  int err = 0;
-  for (int64_t j = k >> 2; j >= tile && !err; j >>= 1) {
-    clean_pass_kernel<KW><<<pass_blocks(total / 2), PASS_THREADS, 0, stream>>>(
-        data, total, j);
-    err = last_error();
+bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// The launches merge_runs makes: one for the shared-memory levels (when
+// run < the tile) and one per level of MERGE_TILE or more.
+int merge_passes(int64_t run, int64_t seg, int tile) {
+  int passes = run < tile ? 1 : 0;
+  for (int64_t len = run < tile ? tile : run; 2 * len <= seg; len <<= 1) {
+    ++passes;
   }
-  if (err) return err;
-  const int j0 = static_cast<int>(k / 4 < tile / 2 ? k / 4 : tile / 2);
-  clean_tile_kernel<KW><<<static_cast<unsigned>(total / tile), SORT_THREADS,
-                          sizeof(uint32_t) * KW * tile, stream>>>(
-      data, total, j0, tile);
-  return last_error();
+  return passes;
 }
 
 // Merges the ascending runs of `run` entries inside each segment of seg
-// entries (seg divides total): the stages k = 2 * run .. seg.
-template <int KW>
-int merge_runs(const uint32_t* in, uint32_t* out, int64_t total, int64_t run,
-               int64_t seg, cudaStream_t stream) {
-  const int tile = static_cast<int>(seg < TILE ? seg : TILE);
-  int64_t k = 2 * run;
-  const uint32_t* src = in;
-  int err = 0;
-  if (k <= tile) {
-    merge_tile_kernel<KW><<<static_cast<unsigned>(total / tile), SORT_THREADS,
-                            sizeof(uint32_t) * KW * tile, stream>>>(
-        in, out, total, static_cast<int>(k), tile);
-    err = last_error();
-    src = out;
-    k = 2 * static_cast<int64_t>(tile);
+// entries (seg divides total).  Reads in once; levels alternate between
+// out and scratch (same size as in; unused when there is one pass), the
+// last writing out.
+template <int PW>
+int merge_runs(const uint32_t* in, uint32_t* out, uint32_t* scratch,
+               int64_t total, int64_t run, int64_t seg, cudaStream_t stream) {
+  const int tile = static_cast<int>(seg < MERGE_TILE ? seg : MERGE_TILE);
+  const int passes = merge_passes(run, seg, tile);
+  if (passes > 1 && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (; k <= seg && !err; k <<= 1) {
-    flip_pass_kernel<KW><<<pass_blocks(total / 2), PASS_THREADS, 0, stream>>>(
-        src, out, total, k);
+  const size_t smem = sizeof(uint32_t) * PW * MERGE_PLANE;
+  const uint32_t* src = in;
+  int p = 0, err = 0;
+  auto dst_of = [&](int pass) {
+    return ((passes - 1 - pass) & 1) ? scratch : out;
+  };
+  if (run < tile) {
+    uint32_t* dst = dst_of(p++);
+    merge_runs_smem_kernel<PW><<<static_cast<unsigned>(total / tile),
+                                 MERGE_THREADS, smem, stream>>>(
+        in, dst, total, static_cast<int>(run), tile);
     err = last_error();
-    src = out;
-    if (!err) err = finish_stage<KW>(out, total, k, tile, stream);
+    src = dst;
+  }
+  for (int64_t len = run < tile ? tile : run; 2 * len <= seg && !err;
+       len <<= 1) {
+    uint32_t* dst = dst_of(p++);
+    merge_level_kernel<PW><<<static_cast<unsigned>(total / MERGE_TILE),
+                             MERGE_THREADS, smem, stream>>>(src, dst, total,
+                                                           len);
+    err = last_error();
+    src = dst;
   }
   return err;
 }
 
-template <int KW>
+template <int PW>
 int merge_pair(const uint32_t* a, const uint32_t* b, uint32_t* out,
-               int64_t half, cudaStream_t stream) {
+               int64_t half, uint32_t off, cudaStream_t stream) {
   const int64_t total = 2 * half;
-  const int tile = static_cast<int>(total < TILE ? total : TILE);
-  pair_flip_kernel<KW><<<pass_blocks(half), PASS_THREADS, 0, stream>>>(
-      a, b, out, half);
-  const int err = last_error();
-  return err ? err : finish_stage<KW>(out, total, total, tile, stream);
+  const int tile = static_cast<int>(total < MERGE_TILE ? total : MERGE_TILE);
+  merge_pair_kernel<PW><<<static_cast<unsigned>(total / tile), MERGE_THREADS,
+                          sizeof(uint32_t) * PW * MERGE_PLANE, stream>>>(
+      a, b, out, half, off, tile);
+  return last_error();
 }
-
-bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
 
 // K9's cut: the first `cut` entries of each of `rows` sorted tiles of
 // `tile` entries, packed one after another.
@@ -408,6 +555,8 @@ __global__ void truncate_kernel(const uint32_t* __restrict__ in,
   for (int q = 0; q < KW; ++q) out[q * rows * cut + e] = in[q * rows * tile + src];
 }
 
+// The sorted tiles are dead once cut, so their buffer is the merge's
+// scratch (m >= capacity).
 template <int KW>
 int sort_truncate(const uint32_t* in, uint32_t* sorted, uint32_t* cut_buf,
                   uint32_t* out, int g, int64_t m, int64_t capacity,
@@ -419,8 +568,8 @@ int sort_truncate(const uint32_t* in, uint32_t* sorted, uint32_t* cut_buf,
   truncate_kernel<KW><<<pass_blocks(tiles * cut), PASS_THREADS, 0, stream>>>(
       sorted, cut_buf, tiles, TRUNC_TILE, cut);
   err = last_error();
-  return err ? err : merge_runs<KW>(cut_buf, out, g * capacity, cut, capacity,
-                                    stream);
+  return err ? err : merge_runs<KW>(cut_buf, out, sorted, g * capacity, cut,
+                                    capacity, stream);
 }
 
 }  // namespace
@@ -444,42 +593,50 @@ extern "C" int sks_sort_rows(const void* in, void* out, int kw, int g,
   }
 }
 
-// K5: in, out (pw, n) u32, the runs of `run` entries ascending; each
-// segment of seg entries is merged into one ascending run.  run and seg
-// powers of two, 2 * run <= seg, seg divides n.  out may not alias in.
-extern "C" int sks_merge_runs(const void* in, void* out, int pw, int64_t n,
-                              int64_t run, int64_t seg, void* stream) {
+// K5: in, out, scratch (pw, n) u32, the runs of `run` entries ascending;
+// each segment of seg entries is merged into one ascending run.  run and
+// seg powers of two, 2 * run <= seg, seg divides n.  None of the three may
+// alias another; scratch may be null when the merge is one pass (seg <=
+// 2,048, or 2 * run == seg).
+extern "C" int sks_merge_runs(const void* in, void* out, void* scratch,
+                              int pw, int64_t n, int64_t run, int64_t seg,
+                              void* stream) {
   if (!sks::pow2(seg) || !sks::pow2(run) || 2 * run > seg || n % seg != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* i = static_cast<const uint32_t*>(in);
   auto* o = static_cast<uint32_t*>(out);
+  auto* t = static_cast<uint32_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
   switch (pw) {
-    case 1: return sks::merge_runs<1>(i, o, n, run, seg, s);
-    case 2: return sks::merge_runs<2>(i, o, n, run, seg, s);
-    case 3: return sks::merge_runs<3>(i, o, n, run, seg, s);
-    case 4: return sks::merge_runs<4>(i, o, n, run, seg, s);
-    case 5: return sks::merge_runs<5>(i, o, n, run, seg, s);
+    case 1: return sks::merge_runs<1>(i, o, t, n, run, seg, s);
+    case 2: return sks::merge_runs<2>(i, o, t, n, run, seg, s);
+    case 3: return sks::merge_runs<3>(i, o, t, n, run, seg, s);
+    case 4: return sks::merge_runs<4>(i, o, t, n, run, seg, s);
+    case 5: return sks::merge_runs<5>(i, o, t, n, run, seg, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // K10: a, b (pw, half) u32 ascending, half a power of two -> out
-// (pw, 2 * half) ascending.  out may not alias a or b.
+// (pw, 2 * half) ascending, b read with b_offset (>= 0) added to word 0 of
+// every valid entry (word pw-1's top bit clear).  out may not alias a or b.
 extern "C" int sks_merge_pair(const void* a, const void* b, void* out, int pw,
-                              int64_t half, void* stream) {
-  if (!sks::pow2(half)) return static_cast<int>(cudaErrorInvalidValue);
+                              int64_t half, int b_offset, void* stream) {
+  if (!sks::pow2(half) || b_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* x = static_cast<const uint32_t*>(a);
   const auto* y = static_cast<const uint32_t*>(b);
   auto* o = static_cast<uint32_t*>(out);
+  const auto off = static_cast<uint32_t>(b_offset);
   auto s = static_cast<cudaStream_t>(stream);
   switch (pw) {
-    case 1: return sks::merge_pair<1>(x, y, o, half, s);
-    case 2: return sks::merge_pair<2>(x, y, o, half, s);
-    case 3: return sks::merge_pair<3>(x, y, o, half, s);
-    case 4: return sks::merge_pair<4>(x, y, o, half, s);
-    case 5: return sks::merge_pair<5>(x, y, o, half, s);
+    case 1: return sks::merge_pair<1>(x, y, o, half, off, s);
+    case 2: return sks::merge_pair<2>(x, y, o, half, off, s);
+    case 3: return sks::merge_pair<3>(x, y, o, half, off, s);
+    case 4: return sks::merge_pair<4>(x, y, o, half, off, s);
+    case 5: return sks::merge_pair<5>(x, y, o, half, off, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -508,13 +665,15 @@ extern "C" int sks_sort_runs(const void* in, void* out, int kw, int g,
 // K9: in (kw, g, m) u32, m = t * 32768 with t >= 2 a power of two;
 // out (kw, g, capacity) u32: per row, the capacity / t smallest entries of
 // each 32,768-entry tile, merged ascending (capacity / t a power of two
-// >= 128).  Scratch: sorted (kw, g, m), cut (kw, g, capacity).
+// >= 128 and <= 32,768).  Scratch: sorted (kw, g, m), cut (kw, g,
+// capacity).
 extern "C" int sks_sort_truncate(const void* in, void* sorted, void* cut,
                                  void* out, int kw, int g, int64_t m,
                                  int64_t capacity, void* stream) {
   const int64_t t = m / sks::TRUNC_TILE;
   if (g <= 0 || m % sks::TRUNC_TILE != 0 || t < 2 || !sks::pow2(t) ||
-      capacity % t != 0 || capacity / t < 128 || !sks::pow2(capacity / t)) {
+      capacity % t != 0 || capacity / t < 128 || !sks::pow2(capacity / t) ||
+      capacity / t > sks::TRUNC_TILE) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* i = static_cast<const uint32_t*>(in);

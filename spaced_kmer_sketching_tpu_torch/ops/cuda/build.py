@@ -180,13 +180,13 @@ def _declare(lib) -> None:
     lib.sks_sort_rows.restype = i
     lib.sks_sort_rows.argtypes = [p, p, i, i, i64, p]
     lib.sks_merge_runs.restype = i
-    lib.sks_merge_runs.argtypes = [p, p, i, i64, i64, i64, p]
+    lib.sks_merge_runs.argtypes = [p, p, p, i, i64, i64, i64, p]
     lib.sks_sort_runs.restype = i
     lib.sks_sort_runs.argtypes = [p, p, i, i, i64, i64, p]
     lib.sks_sort_truncate.restype = i
     lib.sks_sort_truncate.argtypes = [p, p, p, p, i, i, i64, i64, p]
     lib.sks_merge_pair.restype = i
-    lib.sks_merge_pair.argtypes = [p, p, p, i, i64, p]
+    lib.sks_merge_pair.argtypes = [p, p, p, i, i64, i, p]
     lib.sks_gram_tiles.restype = i
     lib.sks_gram_tiles.argtypes = [p, i, i64, i, i, i, i64, p, p]
 

@@ -6,14 +6,20 @@ words, word kw-1 most significant, N a power of two >= 1024; all-ones
 sentinels sort last.  The JAX entry is bitonic_sort_128 on (N, W) keys,
 batched by the finish's vmap.  K8 (sort_runs_128) sorts each row's runs
 with alternating directions, K9 (sort_truncate_128) keeps each 32,768-key
-tile's share of a capacity and merges them; both serve the finish
-fallbacks of ops/sketch.py, batched over the rows as K4 is.
+tile's share of a capacity and merges them (with K5's merge); both serve
+the finish fallbacks of ops/sketch.py, batched over the rows as K4 is.
 
 K5 (merge_sorted_runs) and K10 (merge_pair_streams) merge ascending packed
 (key, gid) streams of pw <= 5 planes, laid out as the JAX package's lists
 of (rows, 128) planes stacked into one (pw, rows, 128) int32 tensor; every
 plane is part of the key.  merge_row_runs is K5 on each row of (kw, G, N)
-planes (the merge rounds of the finish fallback _finish_runs).
+planes (the merge rounds of the finish fallback _finish_runs).  Both are
+merge-path kernels: each CTA finds its slice of the two inputs by a search
+along its output diagonals and merges 2,048 outputs through shared memory,
+so K10 is one launch a call and K5 one launch per merge level (log2 of the
+run count; the levels below 2,048 entries share one launch).  A level
+reads and writes every entry once, so bytes bound them; K5's levels
+alternate between the output and a scratch tensor allocated here.
 """
 from __future__ import annotations
 
@@ -93,16 +99,7 @@ def merge_sorted_runs(planes: torch.Tensor, run_rows: int) -> torch.Tensor:
         return planes
     if planes.device.type == "cpu":
         return merge_sorted_runs_plain(planes, run_rows)
-    dev = planes.device
-    build.require(planes, "planes", torch.int32, 3, dev)
-    out = torch.empty_like(planes)
-    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(),
-                                     planes.shape[0], r * LANES,
-                                     run_rows * LANES, r * LANES,
-                                     build.stream_ptr(dev))
-    build.check(err, "sks_merge_runs")
-    K5.launches += 1
-    return out
+    return _merge_runs(planes, r * LANES, run_rows * LANES, r * LANES)
 
 
 def merge_sorted_runs_plain(planes: torch.Tensor, run_rows: int
@@ -114,17 +111,24 @@ def merge_sorted_runs_plain(planes: torch.Tensor, run_rows: int
     return sort_rows_plain(planes.reshape(pw, 1, -1)).reshape(planes.shape)
 
 
-def merge_pair_streams(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+def merge_pair_streams(pa: torch.Tensor, pb: torch.Tensor, *,
+                       b_gid_offset: int = 0) -> torch.Tensor:
     """Two ascending streams (pw, rows, 128) int32, rows a power of two ->
-    their merge (pw, 2 * rows, 128).  CPU tensors take the plain version;
-    CUDA tensors launch K10, which reads B reversed in its first pass."""
+    their merge (pw, 2 * rows, 128), stream B read with b_gid_offset added
+    to plane 0 of every valid entry (plane pw-1 non-negative; sentinels
+    stay all-ones).  The offset must keep B ascending: the blocked
+    schedule's column gids, shifted into a free gid bit.  CPU tensors take
+    the plain version; CUDA tensors launch K10, one launch."""
     _check_stream(pa, "merge_pair_streams")
     if pb.shape != pa.shape or not _pow2(pa.shape[1]):
         raise ValueError(f"merge_pair_streams takes two equal streams of a "
                          f"power-of-two row count, got {tuple(pa.shape)} "
                          f"and {tuple(pb.shape)}")
+    if not 0 <= b_gid_offset < 2 ** 31:
+        raise ValueError(f"b_gid_offset must lie in [0, 2^31), got "
+                         f"{b_gid_offset}")
     if pa.device.type == "cpu" and pb.device.type == "cpu":
-        return merge_pair_streams_plain(pa, pb)
+        return merge_pair_streams_plain(pa, pb, b_gid_offset=b_gid_offset)
     dev = pa.device
     build.require(pa, "pa", torch.int32, 3, dev)
     build.require(pb, "pb", torch.int32, 3, dev)
@@ -132,16 +136,20 @@ def merge_pair_streams(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
     out = torch.empty((pw, 2 * rows, LANES), dtype=torch.int32, device=dev)
     err = build.lib().sks_merge_pair(pa.data_ptr(), pb.data_ptr(),
                                      out.data_ptr(), pw, rows * LANES,
-                                     build.stream_ptr(dev))
+                                     b_gid_offset, build.stream_ptr(dev))
     build.check(err, "sks_merge_pair")
     K10.launches += 1
     return out
 
 
-def merge_pair_streams_plain(pa: torch.Tensor, pb: torch.Tensor
-                             ) -> torch.Tensor:
-    """Plain PyTorch version of K10 (any device): both streams through
-    sort_rows_plain's stable LSD sorts."""
+def merge_pair_streams_plain(pa: torch.Tensor, pb: torch.Tensor, *,
+                             b_gid_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K10 (any device): B's valid entries
+    shifted, then both streams through sort_rows_plain's stable LSD
+    sorts."""
+    if b_gid_offset:
+        shift = (pb[-1] >= 0).to(torch.int32) * b_gid_offset
+        pb = torch.cat([(pb[0] + shift)[None], pb[1:]])
     both = torch.cat([pa, pb], dim=1)
     return merge_sorted_runs_plain(both, pa.shape[1])
 
@@ -159,11 +167,20 @@ def merge_row_runs(planes: torch.Tensor, run: int) -> torch.Tensor:
         return planes
     if planes.device.type == "cpu":
         return sort_rows_plain(planes)
+    return _merge_runs(planes, g * n, run, n)
+
+
+def _merge_runs(planes: torch.Tensor, n: int, run: int, seg: int
+                ) -> torch.Tensor:
+    """Launch K5 on the n entries of each plane: runs of `run` entries,
+    merged within each segment of seg entries."""
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
     out = torch.empty_like(planes)
-    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(), kw,
-                                     g * n, run, n, build.stream_ptr(dev))
+    scratch = torch.empty_like(planes)
+    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(),
+                                     scratch.data_ptr(), planes.shape[0], n,
+                                     run, seg, build.stream_ptr(dev))
     build.check(err, "sks_merge_runs")
     K5.launches += 1
     return out
@@ -211,10 +228,11 @@ def _truncate_shape(m: int, capacity: int) -> int:
     """The tile count t of K9's contract, checked."""
     t = m // TILE
     if m % TILE or t < 2 or not _pow2(t) or capacity % t or \
-            capacity // t < LANES or not _pow2(capacity // t):
+            not LANES <= capacity // t <= TILE or not _pow2(capacity // t):
         raise ValueError(f"sort_truncate takes m = t * {TILE} with t >= 2 a "
                          f"power of two and a power-of-two share capacity / "
-                         f"t >= {LANES}, got m = {m}, capacity = {capacity}")
+                         f"t in [{LANES}, {TILE}], got m = {m}, capacity = "
+                         f"{capacity}")
     return t
 
 

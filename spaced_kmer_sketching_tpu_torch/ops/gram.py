@@ -8,6 +8,12 @@ sketch sizes -- is read off the stream (K6).  The blocked schedule's
 programs presort each genome block once (K5) and compute macro-tiles from
 two presorted blocks (K10 then K6 in split mode).
 
+Both merges are merge paths (csrc/sort.cu): K5 makes one pass over the
+stream per merge level, log2(G) of them, and K10 one pass a macro-tile,
+reading the column block's stream where it lies and shifting its gids on
+the way in.  Each pass reads and writes every packed entry once, so the
+merges are bound by bytes (pw * 8 bytes an entry and level).
+
 Packed layout (as in the JAX package): packed = (key << gidbits) | gid
 over pw = ceil((key_bits + gidbits + 1) / 32) u32 words, word pw-1 most
 significant.  The +1 is a guard bit: every valid packed value has bit 31
@@ -168,20 +174,18 @@ def gram_pair_tiles(cache: torch.Tensor, ii: Sequence[int],
     """Macro-tiles from the presorted cache (nb, pw, rows, 128): for each
     (ii[p], jj[p]) with ii <= jj, the (block, block) int32 intersections
     of block ii's genomes (rows) with block jj's (columns).  ii == jj
-    yields the full symmetric diagonal tile.  Block jj's valid gids are
-    offset by +block inside the packed gid field (no carry: local gids are
-    < block <= 2^(gidbits-1)), the two streams are merged (K10), and the
-    rect block of the Gram is read at split = block (K6)."""
-    pw = cache.shape[1]
+    yields the full symmetric diagonal tile.  The two streams are merged
+    (K10) with block jj's valid gids offset by +block inside the packed
+    gid field as K10 reads them (no carry: local gids are < block <=
+    2^(gidbits-1)), and the rect block of the Gram is read at split =
+    block (K6)."""
     if block % LANES or (1 << gidbits) < 2 * block:
         raise ValueError(f"block {block} must be a multiple of 128 with "
                          f"2^gidbits >= 2 * block (gidbits {gidbits})")
     tiles = torch.empty((len(ii), block, block), dtype=torch.int32,
                         device=cache.device)
     for p, (i, j) in enumerate(zip(ii, jj)):
-        pi, pj = cache[int(i)], cache[int(j)]
-        shift = (pj[pw - 1] >= 0).to(torch.int32) * block
-        pjs = torch.cat([(pj[0] + shift)[None], pj[1:]])
-        merged = merge_pair_streams(pi, pjs)
+        merged = merge_pair_streams(cache[int(i)], cache[int(j)],
+                                    b_gid_offset=block)
         tiles[p] = gram_tile_scan(merged, gidbits, 2 * block, split=block)
     return tiles

@@ -10,6 +10,11 @@ cached streams (K10) and the rect block of their Gram (K6); intersections
 are symmetric, so each tile also fills its mirror.  The reference's
 ordered all-pairs incl. self, src/generators.hpp:45-58.
 
+Both merges are merge-path kernels (csrc/sort.cu): a block's presort is
+log2(BLOCK) = 7 passes over its stream, a macro-tile's pair merge one
+pass over the two streams with the column block's gid shift folded into
+its loads, so each costs the bytes it moves.
+
 Not ported yet (ROADMAP.md): the bit-tight slab transport, the int16 tile
 download, multi-device round-robin, the store-backed out-of-core per-tile
 schedule and the probe engine.

@@ -11,6 +11,7 @@ Every comparison is bit-exact: the values are integer keys and counts.
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from spaced_kmer_sketching_tpu_torch.config import SketchConfig
 from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
@@ -164,6 +165,124 @@ def test_k10_matches_plain(dev, rows, key_bits):
         1)
     assert torch.equal(sort.merge_pair_streams(a, b),
                        sort.merge_pair_streams_plain(a, b))
+
+
+SENT = 0xFFFFFFFF
+KINDS = ["below", "above", "interleaved", "sentinel", "half_sentinel",
+         "dups"]
+
+
+def hard_runs(rng, pw, nruns, run, kind="each", *, pool=None, sent=0.0):
+    """(pw, nruns * run) int32: nruns ascending runs of `run` entries of
+    pw-word keys (word pw-1's top bit clear, so a K10 offset of <= 255
+    neither carries nor reaches it; sentinels all-ones).  kind: "below"
+    (each run entirely below the next), "above" (entirely above it),
+    "interleaved" (run r holds the sorted keys r, r + nruns, ...),
+    "sentinel" (every entry), "half_sentinel" (the second half of every
+    run), "dups" (5 distinct keys), else runs drawn independently; pool
+    draws from that many distinct keys, sent is a sentinel share."""
+    n = nruns * run
+    hi = np.full(pw, (1 << 32) - 256, np.int64)
+    hi[-1] = (1 << 31) - 256
+    pool = 5 if kind == "dups" else pool or 4 * n
+    keys = rng.integers(0, hi, (pool, pw))[rng.integers(0, pool, n)]
+    keys[rng.random(n) < (1.0 if kind == "sentinel" else sent)] = SENT
+    keys = keys[np.lexsort(keys.T)]
+    if kind == "below":
+        runs = keys.reshape(nruns, run, pw)
+    elif kind == "above":
+        runs = keys.reshape(nruns, run, pw)[::-1]
+    elif kind == "interleaved":
+        runs = keys.reshape(run, nruns, pw).transpose(1, 0, 2)
+    else:
+        runs = keys[rng.permutation(n)].reshape(nruns, run, pw)
+        runs = np.stack([r[np.lexsort(r.T)] for r in runs])
+    runs = np.ascontiguousarray(runs)
+    if kind == "half_sentinel":
+        runs[:, run // 2:] = SENT
+    flat = runs.reshape(n, pw).T.astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(flat).view(np.int32))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("pw", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("rows,run_rows", [(2, 1), (64, 16), (256, 1)])
+def test_k5_hard_inputs_match_plain(dev, rows, run_rows, pw, kind):
+    """K5's shared-memory levels (runs below 2,048 entries), its global
+    levels, and both in one call, on streams whose split points fall
+    inside equal or sentinel runs."""
+    rng = np.random.default_rng(rows * 10 + pw)
+    x = hard_runs(rng, pw, rows // run_rows, run_rows * 128, kind)
+    x = x.reshape(pw, rows, 128).to(dev)
+    build.reset_launches()
+    got = sort.merge_sorted_runs(x, run_rows)
+    want = sort.merge_sorted_runs_plain(x, run_rows)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K5"].launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [0, 128])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("pw", [1, 3, 5])
+@pytest.mark.parametrize("rows", [1, 16, 64])
+def test_k10_hard_inputs_match_plain(dev, rows, pw, kind, offset):
+    """K10 on two streams built as runs 0 and 1 of hard_runs, B's valid
+    gids shifted by 0 or a block of 128."""
+    rng = np.random.default_rng(rows * 10 + pw)
+    x = hard_runs(rng, pw, 2, rows * 128, kind).reshape(pw, 2 * rows, 128)
+    a, b = x[:, :rows].contiguous().to(dev), x[:, rows:].contiguous().to(dev)
+    build.reset_launches()
+    got = sort.merge_pair_streams(a, b, b_gid_offset=offset)
+    want = sort.merge_pair_streams_plain(a, b, b_gid_offset=offset)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K10"].launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["each", "dups", "half_sentinel"])
+@pytest.mark.parametrize("kw,g,n,run", [(1, 3, 8192, 128), (2, 2, 8192, 4096),
+                                        (3, 4, 512, 128), (4, 2, 65536, 1024),
+                                        (2, 5, 256, 1), (2, 1, 4096, 8)])
+def test_k5_segmented_row_merges_match_plain(dev, kw, g, n, run, kind):
+    """merge_row_runs (K5 with one segment a row, seg < n): pairs never
+    cross a row."""
+    rng = np.random.default_rng(n + run)
+    x = hard_runs(rng, kw, g * n // run, run, kind).reshape(kw, g, n).to(dev)
+    got = sort.merge_row_runs(x, run)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort.sort_rows_plain(x))
+
+
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(log_runs=st.integers(1, 6), log_run=st.integers(0, 13),
+       pw=st.integers(1, 5), dup=st.floats(0.0, 1.0),
+       sent=st.floats(0.0, 1.0), seed=st.integers(0, 2 ** 31 - 1))
+def test_k5_k10_property(dev, log_runs, log_run, pw, dup, sent, seed):
+    """Over run count, run length, pw, duplicate rate and sentinel share:
+    K5 (merge_sorted_runs for runs of whole 128-entry rows, else
+    merge_row_runs with pw <= 4) and K10 on the first two runs equal their
+    plain versions."""
+    rng = np.random.default_rng(seed)
+    nruns, run = 1 << log_runs, 1 << log_run
+    if run < 128:
+        pw = min(pw, 4)
+    pool = max(1, int((1.0 - dup) * nruns * run)) + 1
+    x = hard_runs(rng, pw, nruns, run, pool=pool, sent=sent).to(dev)
+    if run < 128:
+        got = sort.merge_row_runs(x[:, None], run)[:, 0]
+    else:
+        x = x.reshape(pw, -1, 128)
+        got = sort.merge_sorted_runs(x, run // 128)
+        half = run // 128
+        a, b = x[:, :half].contiguous(), x[:, half:2 * half].contiguous()
+        assert torch.equal(sort.merge_pair_streams(a, b, b_gid_offset=128),
+                           sort.merge_pair_streams_plain(a, b,
+                                                         b_gid_offset=128))
+    want = sort.sort_rows_plain(x.reshape(pw, 1, -1)).reshape(x.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_routed_all_pairs_match_native_merge(dev):
@@ -384,7 +503,8 @@ def test_k8_matches_plain(dev, kw, g, runs, run):
 
 
 @pytest.mark.parametrize("kw,g,t,cap", [(2, 1, 4, 2048), (2, 2, 16, 8192),
-                                        (4, 1, 2, 256)])
+                                        (4, 1, 2, 256), (2, 3, 4, 512),
+                                        (1, 2, 2, 65536)])
 def test_k9_matches_plain(dev, kw, g, t, cap):
     z = torch.full((kw, g, t * sort.TILE), -1, dtype=torch.int32, device=dev)
     hit = torch.rand(g, t * sort.TILE, device=dev) < cap / (3 * t * sort.TILE)
