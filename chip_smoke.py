@@ -11,11 +11,15 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
   2. hold each kernel against its plain PyTorch version on the GPU, bit for
      bit, and time both with CUDA events: K1-K4 at the sketch step's shapes
      (n = 8,388,608 windows for kw = 1..4; the compaction stages the
-     planner gives; the sort at 65,536 keys, G = 2); K5 and K6 at config
-     2's shapes (128 runs of 32,768 entries, pw 2, gp 128), at pw 5 and at
-     gp 2048 (2,048 runs of 2,048); K10 (without and with the column
-     block's gid offset) and K6 (split) at the blocked schedule's
-     macro-tile (two presorted blocks of 128 x 32,768, gp 256);
+     planner gives; K3 also at G 1-128 and n 1 to 2^22 with all-valid and
+     all-sentinel rows; the sort at 65,536 keys, G = 2); K5 and K6 at
+     config 2's shapes (128 runs of 32,768 entries, pw 2, gp 128), at pw 5,
+     and K6 at pw 1, 3 and 4, at gp 2048 (2,048 runs of 2,048, a key in
+     every genome) and gp 8192 (runs of 8,192, open across chunk edges),
+     full and split, and on empty and all-sentinel streams;
+     K10 (without and with the column block's gid offset) and K6 (split,
+     its second timed shape) at the blocked schedule's macro-tile (two
+     presorted blocks of 128 x 32,768, gp 256);
   3. write synthetic FASTAs from --seed (8 genomes of 4-6 Mnt with a few
      records and N-runs, genome 1 a 3%-mutated copy of genome 0) and run
      the CLI (`driver.main --window 20 --k 16 --device cuda`) on all 8, then
@@ -28,13 +32,13 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
   6. all_pairs_intersections on 4,096 synthetic sketches of ~25,000 40-bit
      keys (capacity 32,768) drawn from 64 clade pools: the blocked
      block-cache route (K5 per block, K10 + K6 per macro-tile), then once
-     more under torch.profiler for the device time and launches of K5's
-     and K10's kernels;
+     more under torch.profiler for the device time and launches of the
+     kernels of K5, K10, K6 and K3;
   7. BASELINE config 5: two synthetic chromosomes of 268.5-272 Mnt (B a
      1.2%-substituted copy of A, each with N-gaps of 10 kb to 1 Mnt, some
      on segment edges), FASTAs of 80-nt lines of 2^28 bytes or more, through
      the CLI: sketch_files streams each in 17 segments (K7 per segment, the
-     finish, a K4 merge);
+     finish, a K4 merge), then once more under torch.profiler, as phase 6;
   8. BASELINE config 4: (a) the CLI on 640 related FASTAs of 1.5-1.7 Mnt
      (8 clades), which routes through the one-flow DevicePipeline (K7, the
      finish, K5 presort per block, K10 + K6 tiles), against the two-step
@@ -72,13 +76,19 @@ salt).  The kernels' launch counters are set to 0 before each of the paths
 kernel must have been launched by the path that uses it, and K7 by phases
 7, 8a, 8b and 9.
 
+K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
+every pw instance, from cuobjdump -sass).
+
 Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}: launches on the paths, max_abs_err, kernel, plain and
 torch.sort-yardstick times, and the bound from the kernel's bytes or, for
 K1, K7 and K11, its instructions at its timed shape, counted from the
-compiled code with cuobjdump; for K5, K9 and K10 also the device launches
-of one call, from torch.profiler, and the fraction of the bound), a line
-of the profiled K5 and K10 sums of phases 6 and 8(b), and as the LAST line
+compiled code with cuobjdump, for K6 its int8 tensor operations on the
+runs it keeps; for K5, K9 and K10 also the device launches of one call,
+from torch.profiler, and the fraction of the bound; K6 at both its timed
+shapes, K3 with the grids the profiler recorded), a line of the profiled
+sums of K5, K10, K6 and K3 over phases 6, 7 and 8(b) with K3's bytes on
+those paths, and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -119,11 +129,16 @@ LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
 # so no instruction stream runs faster than 67e12 / 2 thread-instructions
 # a second.  The extract kernels' instructions a window are counted from
 # their SASS (extract_op_counts).
-# K5's and K10's kernels in csrc/sort.cu, by the names the profiler shows.
-MERGE_KERNELS = {"K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
-                 "K10": ("merge_pair_kernel",)}
+# The kernels of the all-pairs paths, by the names the profiler shows: K5's
+# and K10's in csrc/sort.cu, K6's in csrc/gram_tiles.cu, K3's three in
+# csrc/compact.cu.
+PATH_KERNELS = {"K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
+                "K10": ("merge_pair_kernel",), "K6": ("gram_mma_kernel",),
+                "K3": ("compact_count_kernel", "compact_offset_kernel",
+                       "compact_scatter_kernel")}
 HBM_BYTES_PER_S = 3.35e12
 INSTRUCTIONS_PER_S = 67e12 / 2
+INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core operations
 # Probes of csrc/extract.cu's device functions, compiled like the library
 # and read with cuobjdump: each is one thread's frame (its index, two
 # 64-bit loads, one store) around one piece of a window's work, so a
@@ -236,26 +251,80 @@ def profile_kernels(fn) -> dict:
     return out
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call: the port's kernels' summed device time
+    over `reps` calls under torch.profiler, over reps.  Where the host is
+    slower than the kernels, time_ms measures the host's launch rate and
+    this the kernels."""
+    return sum(ms for ms, _ in profile_kernels(
+        lambda: [fn() for _ in range(reps)]).values()) / reps
+
+
 def device_launches(fn) -> int:
     """Kernel launches on the device of one fn() call (torch.profiler)."""
     return sum(n for _, n in profile_kernels(fn).values())
 
 
+def kernel_grids(fn, names) -> dict:
+    """The grid of each launch of the named kernels in one fn() call, as
+    torch.profiler's trace records it (a kernel event's "grid" argument;
+    None where the trace has none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spaced_kmer_sketching_tpu_torch.utils.native import BUILD_DIR
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    grids = {}
+    for e in events:
+        m = re.search(r"sks::(?:\(anonymous namespace\)::)?(\w+)",
+                      str(e.get("name", "")))
+        if e.get("cat") == "kernel" and m and m.group(1) in names:
+            grids.setdefault(m.group(1), []).append(
+                (e.get("args") or {}).get("grid"))
+    return grids
+
+
 def profile_path(what: str, fn) -> dict:
     """A second, profiled run of a path after its timed one: prints the
-    summed device time and launches of K5's and K10's kernels and of every
-    kernel of the port."""
+    summed device time and launches of the kernels of K5, K10, K6 and K3
+    and of every kernel of the port, and K3's bytes on the path: each
+    compact_global call's planes read once and written once, their time at
+    the HBM rate, and that bound's share of K3's profiled sum."""
+    from spaced_kmer_sketching_tpu_torch.ops import sketch as sketch_ops
+    k3 = {"calls": 0, "bytes": 0}
+    orig = sketch_ops.compact_global
+
+    def counting(planes):
+        k3["calls"] += 1
+        k3["bytes"] += 2 * nbytes(planes)
+        return orig(planes)
+    sketch_ops.compact_global = counting
     t0 = time.perf_counter()
-    kernels = profile_kernels(fn)
+    try:
+        kernels = profile_kernels(fn)
+    finally:
+        sketch_ops.compact_global = orig
     wall = time.perf_counter() - t0
     sums = {key: [sum(kernels.get(n, [0.0, 0])[i] for n in names)
-                  for i in (0, 1)] for key, names in MERGE_KERNELS.items()}
-    print(f"{what} profile ({wall:.3f} s wall, profiled): K5 "
-          f"{sums['K5'][0]:.3f} ms device over "
-          f"{sums['K5'][1]} launches, K10 {sums['K10'][0]:.3f} ms over "
-          f"{sums['K10'][1]} launches; every kernel [ms, launches] "
+                  for i in (0, 1)] for key, names in PATH_KERNELS.items()}
+    k3["bound_ms"] = k3["bytes"] / HBM_BYTES_PER_S * 1e3
+    k3["share_of_bound"] = (k3["bound_ms"] / sums["K3"][0]
+                            if sums["K3"][0] else None)
+    print(f"{what} profile ({wall:.3f} s wall, profiled): "
+          + ", ".join(f"{k} {v[0]:.3f} ms device over {v[1]} launches"
+                      for k, v in sums.items())
+          + f"; K3 bytes {json.dumps(k3)}; every kernel [ms, launches] "
           + json.dumps({k: [round(v[0], 3), v[1]]
                         for k, v in sorted(kernels.items())}))
+    sums["K3 bytes"] = k3
     return sums
 
 
@@ -263,33 +332,88 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_: float, ops: float = 0.0) -> dict:
+def bound(bytes_: float, ops: float = 0.0, int8_ops: float = 0.0) -> dict:
     """bound_ms and bound_by of work that moves `bytes_` (each input read
-    once, each output written once) and executes `ops` thread-instructions."""
+    once, each output written once), executes `ops` thread-instructions
+    and `int8_ops` int8 tensor-core operations."""
     b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INSTRUCTIONS_PER_S * 1e3
+    o_ms = max(ops / INSTRUCTIONS_PER_S, int8_ops / INT8_OPS_PER_S) * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "operations" if o_ms > b_ms else "bytes"}
 
 
-def sass_instructions(path: pathlib.Path) -> dict:
-    """Static instruction count (NOPs left out) of every kernel in a
-    library or cubin, by its (mangled) name, from `cuobjdump -sass`."""
+def sass_opcodes(path: pathlib.Path) -> dict:
+    """The opcodes (NOPs left out) of every kernel in a library or cubin,
+    by its (mangled) name, from `cuobjdump -sass`."""
     from spaced_kmer_sketching_tpu_torch.ops.cuda import build
     tool = pathlib.Path(build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(path)], check=True,
                           capture_output=True, text=True).stdout
-    counts, name = {}, None
+    ops, name = {}, None
     for line in text.splitlines():
         head = re.match(r"\s*Function\s*:\s*(\S+)", line)
         if head:
             name = head.group(1)
-            counts[name] = 0
+            ops[name] = []
             continue
         op = SASS_INSTRUCTION.search(line)
         if name is not None and op and op.group(1) != "NOP":
-            counts[name] += 1
-    return counts
+            ops[name].append(op.group(1))
+    return ops
+
+
+def sass_instructions(path: pathlib.Path) -> dict:
+    """Static instruction count of every kernel (sass_opcodes)."""
+    return {k: len(v) for k, v in sass_opcodes(path).items()}
+
+
+def k6_tensor_cores(so: pathlib.Path) -> dict:
+    """K6's compiled code (every pw instance of gram_mma_kernel in the
+    library): its tensor-core instructions, IMMA (mma.sync) or IGMMA
+    (wgmma), counted by opcode; fails if an instance has none."""
+    found = {name: [op for op in ops if op.startswith(("IMMA", "IGMMA"))]
+             for name, ops in sass_opcodes(so).items()
+             if "gram_mma_kernel" in name}
+    need(len(found) == 5 and all(found.values()),
+         f"K6 instances without tensor-core instructions: "
+         f"{ {k: len(v) for k, v in found.items()} }")
+    return {op: sum(v.count(op) for v in found.values())
+            for op in sorted({op for v in found.values() for op in v})}
+
+
+def k6_kept_runs(sw, gidbits: int, gp: int, split=None) -> int:
+    """Runs of a packed stream that can add to K6's output, summed over its
+    128 x 128 tiles, as the kernel keeps them: an entry in the tile's row
+    range and one in its column range, or two in range on a diagonal tile
+    of full mode.  Each kept run costs 2 x 128 x 128 tensor operations."""
+    import torch
+    pw = sw.shape[0]
+    w = sw.reshape(pw, -1)
+    gmask = (1 << gidbits) - 1
+    key = torch.cat([(w[0] & ~gmask)[None], w[1:]])
+    bnd = torch.ones(w.shape[1], dtype=torch.bool, device=w.device)
+    bnd[1:] = (key[:, 1:] != key[:, :-1]).any(0)
+    valid = w[pw - 1] >= 0
+    rid = (torch.cumsum(bnd.long(), 0) - 1)[valid]
+    gid = (w[0] & gmask)[valid].long()
+    nruns = int(rid[-1]) + 1 if rid.numel() else 0
+    rows = gp if split is None else split
+    c0 = 0 if split is None else split
+    kept = 0
+    for tr in range(rows // 128):
+        for tc in range((gp - c0) // 128):
+            r0, cg0 = tr * 128, c0 + tc * 128
+            if split is None and tr > tc:
+                continue
+
+            def hits(lo):
+                sel = (gid >= lo) & (gid < lo + 128)
+                return torch.bincount(rid[sel], minlength=nruns)
+            if split is None and tr == tc:
+                kept += int((hits(r0) >= 2).sum())
+            else:
+                kept += int(((hits(r0) > 0) & (hits(cg0) > 0)).sum())
+    return kept
 
 
 def extract_op_counts(build_dir: pathlib.Path) -> dict:
@@ -444,7 +568,8 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
         planes = got[0].reshape(kw, g, srows * k_out)
     res["K2"]["max_abs_err"] = err
 
-    # K3 at the finish's two sizes: the padded chain output, the capacity
+    # K3 at the finish's two sizes: the padded chain output, the capacity;
+    # then G 1-128 and n 1 to 2^22 with all-valid and all-sentinel rows
     mp = 1 << (max(planes.shape[2], capacity) - 1).bit_length()
     chain_out = sk._pad_to(planes, mp)
     got = compact.compact_global(chain_out)
@@ -454,8 +579,30 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
     err = max(err, max_abs_err([compact.compact_global(holed)],
                                [compact.compact_global_plain(holed)]))
     print(f"K3 n={mp} and n={capacity}: max_abs_err={err}")
+    for kw, g3, n3 in ((1, 1, 1), (2, 1, 2049), (3, 128, 4097),
+                       (4, 2, 131071), (1, 1, 1 << 22), (2, 3, (1 << 21) + 5)):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, g3, n3),
+                          dtype=torch.int32, device=dev)
+        x[:, torch.rand((g3, n3), device=dev) < 0.4] = -1
+        x[:, 0] = x[:, 0] & 0x7FFFFFFF            # row 0: every slot valid
+        if g3 > 1:
+            x[:, -1] = -1                         # the last: none
+        e = max_abs_err([compact.compact_global(x)],
+                        [compact.compact_global_plain(x)])
+        err = max(err, e)
+        print(f"K3 kw={kw} G={g3} n={n3}: max_abs_err={e}")
+    grids = kernel_grids(lambda: compact.compact_global(chain_out),
+                         PATH_KERNELS["K3"])
+    g3, n3 = chain_out.shape[1:]
+    print(f"K3 timed shape {tuple(chain_out.shape)}: grids the profiler "
+          f"recorded {json.dumps(grids)} (a row of {n3} slots is "
+          f"{-(-n3 // 2048)} tiles of 2,048)")
+    count_grid = grids.get("compact_count_kernel", [None])[0]
+    need(count_grid is None or list(count_grid[:2]) == [-(-n3 // 2048), g3],
+         f"K3's count launch has grid {count_grid}, not a block a tile")
     res["K3"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, grid=grids,
+        device_ms=device_ms(lambda: compact.compact_global(chain_out), 20),
         ms=timer(lambda: compact.compact_global(chain_out), 20),
         plain_ms=timer(lambda: compact.compact_global_plain(chain_out), 5),
         **bound(2 * nbytes(chain_out)))
@@ -754,12 +901,25 @@ def packed_runs(keys, key_bits, gidbits):
     return planes.reshape(pw, g * cap // 128, 128)
 
 
+def every_genome_key(keys):
+    """keys (g, cap, kw) with the all-zero key, below every clade key, put
+    first in every sketch (the last slot drops): a run held by every
+    genome."""
+    import torch
+    zero = torch.zeros_like(keys[:, :1])
+    return torch.cat([zero, keys[:, :-1]], 1)
+
+
 def phase_gram_kernels(dev, timer, seed):
     """K5, K6 and K10 against their plain versions: K5 and K6 at config
-    2's shapes (128 genome runs of 32,768, 40-bit keys, pw 2, gp 128) and
-    at pw 5 (128-bit keys) and gp 2048 (2,048 runs of 2,048); K10 and the
-    split K6 at a blocked macro-tile (two presorted blocks of 128 x
-    32,768, gidbits 8, gp 256).  Returns per-kernel max_abs_err and times."""
+    2's shapes (128 genome runs of 32,768, 40-bit keys, pw 2, gp 128), at
+    pw 5 (128-bit keys), and K6 at pw 1, 3 and 4, at gp 512, at gp 2048
+    (2,048 runs of 2,048 with a key in every genome) and at gp 8192 (a run
+    of 8,192, open across chunk edges), full and split, and on empty and
+    all-sentinel streams; K10 and the split K6 at a blocked
+    macro-tile (two presorted blocks of 128 x 32,768, gidbits 8, gp 256).
+    K6 is timed at config 2's shape and at the macro-tile.  Returns
+    per-kernel max_abs_err and times."""
     import torch
 
     from spaced_kmer_sketching_tpu_torch.ops.cuda import gram_tiles, sort
@@ -774,23 +934,60 @@ def phase_gram_kernels(dev, timer, seed):
         res[key]["max_abs_err"] = max(res[key]["max_abs_err"], e)
         print(f"{key} {what}: max_abs_err={e}")
 
-    cases = [  # (what, genomes, cap, pool, count, key_bits, timed)
+    def k6_timing(what, args, split):
+        got = gram_tiles.gram_tile_scan(*args, split=split)
+        kept = k6_kept_runs(*args, split=split)
+        r = dict(shape=what, kept_runs=kept,
+                 device_ms=device_ms(lambda: gram_tiles.gram_tile_scan(
+                     *args, split=split), 10),
+                 ms=timer(lambda: gram_tiles.gram_tile_scan(*args,
+                                                            split=split), 10),
+                 plain_ms=timer(lambda: gram_tiles.gram_tile_scan_plain(
+                     *args, split=split), 3),
+                 **bound(nbytes(args[0], got),
+                         int8_ops=2.0 * 128 * 128 * kept))
+        print(f"K6 timing at {what}: kernel {r['ms']} ms (device "
+              f"{r['device_ms']} ms), plain "
+              f"{r['plain_ms']} ms, {kept} kept runs, bound "
+              f"{r['bound_ms']} ms ({r['bound_by']})")
+        return r
+
+    cases = [  # (what, genomes, cap, pool, count, key_bits, every, timed)
         ("config 2: 128 x 32768, 40-bit keys", 128, 32768, 32768, 25000, 40,
-         True),
+         False, True),
         ("pw 5: 128 x 32768, 128-bit keys", 128, 32768, 32768, 25000, 128,
+         False, False),
+        ("gp 2048: 2048 x 2048, 40-bit keys, a key in every genome", 2048,
+         2048, 2048, 1500, 40, True, False),
+        ("gp 8192: 8192 x 256, 40-bit keys, a key in every genome", 8192,
+         256, 512, 200, 40, True, False),
+        ("pw 1: 128 x 2048, 16-bit keys, a key in every genome", 128, 2048,
+         2048, 1500, 16, True, False),
+        ("pw 3: 512 x 1024, 60-bit keys", 512, 1024, 1024, 700, 60, False,
          False),
-        ("gp 2048: 2048 x 2048, 40-bit keys", 2048, 2048, 2048, 1500, 40,
-         False)]
-    for what, g, cap, pool, count, kb, timed in cases:
+        ("pw 4: 256 x 4096, 90-bit keys, a key in every genome", 256, 4096,
+         4096, 3000, 90, True, False)]
+    shapes = []
+    for what, g, cap, pool, count, kb, every, timed in cases:
         gidbits = max(1, (g - 1).bit_length())
-        runs = packed_runs(clade_keys(gen, dev, g, cap, pool, count, 64, kb),
-                           kb, gidbits)
+        keys = clade_keys(gen, dev, g, cap, pool, count, 64, kb)
+        if every:
+            keys = every_genome_key(keys)
+        runs = packed_runs(keys, kb, gidbits)
+        del keys
         merged = sort.merge_sorted_runs(runs, cap // 128)
         hold("K5", merged, sort.merge_sorted_runs_plain(runs, cap // 128),
              f"{what}, pw {runs.shape[0]}")
         gram = gram_tiles.gram_tile_scan(merged, gidbits, g)
         hold("K6", gram, gram_tiles.gram_tile_scan_plain(merged, gidbits, g),
              f"{what}, gp {g}, Gram sum {int(gram.sum())}")
+        need(not every or int(gram.min()) >= 1,
+             f"K6 {what}: a pair without the shared key")
+        for split in sorted({x for x in (128, g // 2 // 128 * 128, g - 128)
+                             if 0 < x < g}):
+            hold("K6", gram_tiles.gram_tile_scan(merged, gidbits, g,
+                                                 split=split),
+                 gram[:split, split:], f"{what}, split {split}")
         if timed:
             key64 = sort_key64(runs.reshape(runs.shape[0], -1))
             res["K5"].update(
@@ -801,12 +998,19 @@ def phase_gram_kernels(dev, timer, seed):
                     runs, cap // 128), 3),
                 library_ms=timer(lambda: torch.sort(key64), 10),
                 **bound(2 * nbytes(runs)))
-            res["K6"].update(
-                ms=timer(lambda: gram_tiles.gram_tile_scan(merged, gidbits, g),
-                         10),
-                plain_ms=timer(lambda: gram_tiles.gram_tile_scan_plain(
-                    merged, gidbits, g), 3),
-                **bound(nbytes(merged, gram)))
+            shapes.append(k6_timing(f"{what}, gp {g}", (merged, gidbits, g),
+                                    None))
+        del runs, merged, gram
+    for pw in (1, 5):
+        for sw in (torch.empty((pw, 0), dtype=torch.int32, device=dev),
+                   torch.full((pw, 64, 128), -1, dtype=torch.int32,
+                              device=dev)):
+            for split in (None, 128):
+                got = gram_tiles.gram_tile_scan(sw, 8, 256, split=split)
+                hold("K6", got, gram_tiles.gram_tile_scan_plain(
+                    sw, 8, 256, split=split),
+                    f"pw {pw}, {sw.numel() // pw} entries, all sentinels, "
+                    f"split {split}")
 
     # a blocked macro-tile of two blocks that share their 4 clades, as
     # blocks b and b + 16 of phase 6 do
@@ -842,11 +1046,12 @@ def phase_gram_kernels(dev, timer, seed):
         library_ms=timer(lambda: torch.sort(key64), 10),
         device_launches=device_launches(pair),
         **bound(nbytes(pa, pb, merged)))
-    args = (merged, gidbits, 2 * block)
-    split_ms = timer(lambda: gram_tiles.gram_tile_scan(*args, split=block), 10)
-    split_plain = timer(
-        lambda: gram_tiles.gram_tile_scan_plain(*args, split=block), 3)
-    print(f"K6 split timing: kernel {split_ms} ms, plain {split_plain} ms")
+    shapes.append(k6_timing(f"macro-tile: split {block} of gp {2 * block}, "
+                            f"2 x {block} x {cap}", (merged, gidbits,
+                                                     2 * block), block))
+    res["K6"].update({k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "device_ms")},
+                     timed_shapes=shapes)
     for name, r in res.items():
         need(r["max_abs_err"] <= TOLERANCE,
              f"{name} disagrees with its plain version: {r}")
@@ -1464,8 +1669,11 @@ def run_config5(tmp: pathlib.Path, rng, pool) -> dict:
           f"{sc[1].count} keys, {int(inter[0, 1])} shared) equal the native "
           f"scalar pipeline on the whole files and the CSV the host math in "
           f"{time.perf_counter() - t0:.3f} s; ANI(chrA, chrB) = {ani}")
+    prof = profile_path("phase 7", lambda: run_cli(
+        [str(tmp / "config5_profiled.csv"), *paths, "--window", "20", "--k",
+         "16", "--device", "cuda"]))
     return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
-            "wall_s": wall}
+            "wall_s": wall, "profile": prof}
 
 
 # --- phase 8: BASELINE config 4 -------------------------------------------
@@ -1692,6 +1900,9 @@ def main(argv=None) -> int:
           f"a window of K1 and K7 {ops['K1'][0]} + {ops['K1'][1]} if valid, "
           f"of K11 {ops['K11'][0]} + {ops['K11'][1]} if valid "
           f"({time.perf_counter() - t0:.3f} s)")
+    k6_ops = k6_tensor_cores(so)
+    print(f"K6 (gram_mma_kernel, pw 1-5) tensor-core instructions "
+          f"(cuobjdump -sass): {json.dumps(k6_ops)}")
 
     # phase 2: kernels against their plain versions
     t0 = time.perf_counter()
@@ -1764,6 +1975,12 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 device_launches_per_call=r["device_launches"],
                 fraction_of_bound=r["bound_ms"] / r["ms"])
+        if key == "K6":
+            kernels[-1].update(device_ms=r["device_ms"],
+                               timed_shapes=r["timed_shapes"],
+                               tensor_core_sass=k6_ops)
+        if key == "K3":
+            kernels[-1].update(grid=r["grid"], device_ms=r["device_ms"])
     seeds, seeds7 = kres["K1 seeds"], kres["K7 seeds"]
     print(f"K1 seed-batch mode ({CONFIG3_SEEDS} seeds, n = 2^23): "
           f"{seeds['ms']} ms, {CONFIG3_SEEDS} single-seed launches "
@@ -1772,10 +1989,10 @@ def main(argv=None) -> int:
           f"(config 3's path) {seeds7['ms']} ms, plain {seeds7['plain_ms']} "
           f"ms, bound {seeds7['bound_ms']} ms ({seeds7['bound_by']}); {smi}")
     print(json.dumps({"kernels": kernels}))
-    print(f"merge paths (profiler): phase 6 (G = {BLOCKED_GENOMES}) K5 "
-          f"{blk['profile']['K5']}, K10 {blk['profile']['K10']}; phase 8b "
-          f"(G = {CONFIG4_GENOMES}) K5 {cfg4b['profile']['K5']}, K10 "
-          f"{cfg4b['profile']['K10']} [device ms, launches]; {smi}")
+    print(f"profiled paths ([device ms, launches]; K3's bytes): phase 6 "
+          f"(G = {BLOCKED_GENOMES}) {json.dumps(blk['profile'])}; phase 7 "
+          f"(config 5) {json.dumps(cfg5['profile'])}; phase 8b "
+          f"(G = {CONFIG4_GENOMES}) {json.dumps(cfg4b['profile'])}; {smi}")
     s_ms, c_ms = run["config1_warm"]
     print(f"config 1 (2 genomes, w=20, k=16, warm): sketching {s_ms} ms, "
           f"comparison {c_ms} ms; {smi}")

@@ -13,19 +13,33 @@
 // write each valid word once, with a handful of integer operations per
 // slot.  K2 is one warp per row (four coalesced 128-byte loads per word
 // plane, four __ballot_sync for the ranks), so it runs at the copy rate.
-// K3 is a block-wide scan per genome (one block of 1024 threads walks the
-// row in 1024-slot steps, carrying the running offset), which keeps the
-// code a single launch with no scratch but uses only G of the 132 SMs:
-// at the main path's n = 65,536-131,072 it is bounded by the serial step
-// count (~100 steps of two __syncthreads), not by bandwidth.  A multi-block
-// decoupled look-back scan is the next step if K3 shows in the profile.
+// K3 spreads every row over many blocks, so that every SM takes part at
+// any G: a row is cut into tiles of 2,048 slots, one block a tile, in three
+// launches.  The first counts each tile's valid slots (warp sums) into
+// a scratch array; the second, one block a row, turns a row's counts
+// into exclusive offsets in place and its total beside them (a block scan
+// a round of 1,024 tiles); the third reads its tile again, ranks its valid
+// slots by ballots and one block scan, writes them at offset + rank, and
+// writes the sentinels of its own output range past the row's total.  Only
+// the offset scan is serial in the row length, one round for every
+// 2,097,152 slots of a row; the second read of the input and the count
+// array are the price of the order.
 #include "common.cuh"
 
 namespace sks {
 namespace {
 
 constexpr int ROWS_PER_BLOCK = 8;      // warps per block in K2
-constexpr int GLOBAL_THREADS = 1024;   // threads per genome in K3
+constexpr int SCAN_THREADS = 256;      // K3
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int SCAN_PER = 8;            // slots a thread
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_PER;   // 2,048 slots a block
+constexpr int OFFSET_THREADS = 1024;   // K3's offset scan, one block a row
+
+// K3's tiles a row of n slots.
+__host__ __device__ inline int64_t global_tiles(int64_t n) {
+  return (n + SCAN_TILE - 1) / SCAN_TILE;
+}
 
 template <int KW>
 __global__ void compact_rows_kernel(const uint32_t* __restrict__ in,
@@ -73,48 +87,131 @@ __global__ void compact_rows_kernel(const uint32_t* __restrict__ in,
 }
 
 template <int KW>
-__global__ void __launch_bounds__(GLOBAL_THREADS) compact_global_kernel(
-    const uint32_t* __restrict__ in, int64_t n, uint32_t* __restrict__ out) {
+__device__ __forceinline__ bool slot_valid(const uint32_t* src, int64_t plane,
+                                           int64_t s) {
+  bool valid = false;
+#pragma unroll
+  for (int q = 0; q < KW; ++q) valid |= src[q * plane + s] != SENT;
+  return valid;
+}
+
+// K3, launch 1: counts[row * tiles + tile] = valid slots of the tile.
+template <int KW>
+__global__ void __launch_bounds__(SCAN_THREADS) compact_count_kernel(
+    const uint32_t* __restrict__ in, int64_t n,
+    int32_t* __restrict__ counts) {
+  const int64_t plane = static_cast<int64_t>(gridDim.y) * n;
+  const uint32_t* src = in + static_cast<int64_t>(blockIdx.y) * n;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * SCAN_TILE;
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_PER; ++j) {
+    const int64_t s = t0 + j * SCAN_THREADS + threadIdx.x;
+    c += s < n && slot_valid<KW>(src, plane, s);
+  }
+  __shared__ int red[SCAN_WARPS];
+  c = __reduce_add_sync(FULL, c);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < SCAN_WARPS; ++w) sum += red[w];
+    counts[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+// K3, launch 2, one block a row: the row's tile counts become exclusive
+// offsets in place, and totals[row] their sum.
+__global__ void __launch_bounds__(OFFSET_THREADS) compact_offset_kernel(
+    int32_t* __restrict__ counts, int64_t tiles,
+    int32_t* __restrict__ totals) {
+  __shared__ int wsum[OFFSET_THREADS / 32 + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t plane = static_cast<int64_t>(gridDim.x) * n;
-  const uint32_t* src = in + static_cast<int64_t>(blockIdx.x) * n;
-  uint32_t* dst = out + static_cast<int64_t>(blockIdx.x) * n;
-  __shared__ int wsum[GLOBAL_THREADS / 32];
-  const unsigned below = (1u << lane) - 1u;
+  int32_t* row = counts + static_cast<int64_t>(blockIdx.x) * tiles;
+  int base = 0;
+  for (int64_t t0 = 0; t0 < tiles; t0 += OFFSET_THREADS) {
+    const int64_t t = t0 + threadIdx.x;
+    const int c = t < tiles ? row[t] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = wsum[lane];
+      int wi = w;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, wi, o);
+        if (lane >= o) wi += y;
+      }
+      wsum[lane] = wi - w;
+      if (lane == 31) wsum[32] = wi;
+    }
+    __syncthreads();
+    if (t < tiles) row[t] = base + wsum[warp] + incl - c;
+    base += wsum[32];
+    __syncthreads();                  // wsum is written again
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = base;
+}
 
-  int64_t offset = 0;                  // valid entries written so far
-  for (int64_t step = 0; step < n; step += GLOBAL_THREADS) {
-    const int64_t i = step + threadIdx.x;
-    uint32_t v[KW];
-    bool valid = false;
-    if (i < n) {
+// K3, launch 3: the tile's valid slots at the tile's offset, in order, and
+// the sentinels of the tile's output range past the row's total.
+template <int KW>
+__global__ void __launch_bounds__(SCAN_THREADS) compact_scatter_kernel(
+    const uint32_t* __restrict__ in, int64_t n,
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ totals,
+    uint32_t* __restrict__ out) {
+  __shared__ int wsum[SCAN_WARPS * SCAN_PER + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t plane = static_cast<int64_t>(gridDim.y) * n;
+  const uint32_t* src = in + static_cast<int64_t>(blockIdx.y) * n;
+  uint32_t* dst = out + static_cast<int64_t>(blockIdx.y) * n;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * SCAN_TILE;
+  const int64_t t1 = t0 + SCAN_TILE < n ? t0 + SCAN_TILE : n;
+  const int64_t offset =
+      offsets[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x];
+  const int64_t total = totals[blockIdx.y];
+
+  uint32_t v[SCAN_PER][KW];
+  unsigned valid = 0;                 // bit j: slot j is valid
+#pragma unroll
+  for (int j = 0; j < SCAN_PER; ++j) {
+    const int64_t s = t0 + j * SCAN_THREADS + threadIdx.x;
+    bool ok = false;
+    if (s < t1) {
 #pragma unroll
       for (int q = 0; q < KW; ++q) {
-        v[q] = src[q * plane + i];
-        valid |= v[q] != SENT;
+        v[j][q] = src[q * plane + s];
+        ok |= v[j][q] != SENT;
       }
     }
-    const unsigned bal = __ballot_sync(FULL, valid);
-    if (lane == 0) wsum[warp] = __popc(bal);
-    __syncthreads();
-    int before = 0, all = 0;
-    for (int w = 0; w < GLOBAL_THREADS / 32; ++w) {
-      const int c = wsum[w];
-      before += (w < warp) ? c : 0;
-      all += c;
-    }
-    if (valid) {
-      const int64_t pos = offset + before + __popc(bal & below);
-#pragma unroll
-      for (int q = 0; q < KW; ++q) dst[q * plane + pos] = v[q];
-    }
-    offset += all;
-    __syncthreads();                   // wsum is rewritten next step
+    valid |= static_cast<unsigned>(ok) << j;
+    scan_publish(j * SCAN_WARPS + warp, __ballot_sync(FULL, ok), wsum);
   }
-  for (int64_t i = offset + threadIdx.x; i < n; i += GLOBAL_THREADS) {
+  scan_groups(SCAN_WARPS * SCAN_PER, wsum);
 #pragma unroll
-    for (int q = 0; q < KW; ++q) dst[q * plane + i] = SENT;
+  for (int j = 0; j < SCAN_PER; ++j) {
+    const unsigned bal = __ballot_sync(FULL, valid >> j & 1);
+    if (valid >> j & 1) {
+      const int64_t pos = offset + wsum[j * SCAN_WARPS + warp] +
+                          __popc(bal & below);
+#pragma unroll
+      for (int q = 0; q < KW; ++q) dst[q * plane + pos] = v[j][q];
+    }
+  }
+  for (int64_t s = (total > t0 ? total : t0) + threadIdx.x; s < t1;
+       s += SCAN_THREADS) {
+#pragma unroll
+    for (int q = 0; q < KW; ++q) dst[q * plane + s] = SENT;
   }
 }
 
@@ -128,9 +225,21 @@ void launch_rows(const uint32_t* in, int64_t nrows, int k_out, uint32_t* out,
 }
 
 template <int KW>
-void launch_global(const uint32_t* in, int g, int64_t n, uint32_t* out,
-                   cudaStream_t stream) {
-  compact_global_kernel<KW><<<g, GLOBAL_THREADS, 0, stream>>>(in, n, out);
+int launch_global(const uint32_t* in, int g, int64_t n, int32_t* scratch,
+                  uint32_t* out, cudaStream_t stream) {
+  const int64_t tiles = global_tiles(n);
+  int32_t* totals = scratch + g * tiles;
+  const dim3 grid(static_cast<unsigned>(tiles), g);
+  compact_count_kernel<KW><<<grid, SCAN_THREADS, 0, stream>>>(in, n, scratch);
+  int err = last_error();
+  if (err != 0) return err;
+  compact_offset_kernel<<<g, OFFSET_THREADS, 0, stream>>>(scratch, tiles,
+                                                          totals);
+  err = last_error();
+  if (err != 0) return err;
+  compact_scatter_kernel<KW><<<grid, SCAN_THREADS, 0, stream>>>(
+      in, n, scratch, totals, out);
+  return last_error();
 }
 
 }  // namespace
@@ -158,19 +267,27 @@ extern "C" int sks_compact_rows(const void* in, int kw, int64_t nrows,
   return sks::last_error();
 }
 
-// in, out (kw, g, n) u32.
+// int32 elements of K3's scratch for g rows of n slots: the tile counts
+// (g, ceil(n / 2,048)), then the g row totals.
+extern "C" int64_t sks_compact_global_scratch(int g, int64_t n) {
+  return static_cast<int64_t>(g) * (sks::global_tiles(n) + 1);
+}
+
+// in, out (kw, g, n) u32; scratch sks_compact_global_scratch(g, n) int32.
 extern "C" int sks_compact_global(const void* in, int kw, int g, int64_t n,
-                                  void* out, void* stream) {
-  if (g <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  void* scratch, void* out, void* stream) {
+  if (g <= 0 || g > 65535 || n <= 0 || sks::global_tiles(n) > 0x7FFFFFFF) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* i = static_cast<const uint32_t*>(in);
+  auto* c = static_cast<int32_t*>(scratch);
   auto* o = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (kw) {
-    case 1: sks::launch_global<1>(i, g, n, o, s); break;
-    case 2: sks::launch_global<2>(i, g, n, o, s); break;
-    case 3: sks::launch_global<3>(i, g, n, o, s); break;
-    case 4: sks::launch_global<4>(i, g, n, o, s); break;
+    case 1: return sks::launch_global<1>(i, g, n, c, o, s);
+    case 2: return sks::launch_global<2>(i, g, n, c, o, s);
+    case 3: return sks::launch_global<3>(i, g, n, c, o, s);
+    case 4: return sks::launch_global<4>(i, g, n, c, o, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return sks::last_error();
 }

@@ -176,7 +176,9 @@ def _declare(lib) -> None:
     lib.sks_compact_rows.restype = i
     lib.sks_compact_rows.argtypes = [p, i, i64, i, p, p, p]
     lib.sks_compact_global.restype = i
-    lib.sks_compact_global.argtypes = [p, i, i, i64, p, p]
+    lib.sks_compact_global.argtypes = [p, i, i, i64, p, p, p]
+    lib.sks_compact_global_scratch.restype = i64
+    lib.sks_compact_global_scratch.argtypes = [i, i64]
     lib.sks_sort_rows.restype = i
     lib.sks_sort_rows.argtypes = [p, p, i, i, i64, p]
     lib.sks_merge_runs.restype = i

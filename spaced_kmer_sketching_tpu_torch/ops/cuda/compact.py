@@ -72,7 +72,9 @@ def compact_rows_plain(planes: torch.Tensor, k_out: int, *,
 def compact_global(planes: torch.Tensor) -> torch.Tensor:
     """planes (kw, G, n) int32 -> same shape, each genome row's valid
     entries moved to the front in order, all-ones tail.  CPU tensors take
-    the plain version; CUDA tensors launch K3."""
+    the plain version; CUDA tensors launch K3 (three kernels: tile counts,
+    their offsets, the ranked scatter), whose count scratch is sized by
+    the library."""
     if planes.dim() != 3 or not 1 <= planes.shape[0] <= 4:
         raise ValueError(f"compact_global takes (kw<=4, G, n) planes, got "
                          f"{tuple(planes.shape)}")
@@ -82,8 +84,14 @@ def compact_global(planes: torch.Tensor) -> torch.Tensor:
     build.require(planes, "planes", torch.int32, 3, dev)
     kw, g, n = planes.shape
     out = torch.empty_like(planes)
-    err = build.lib().sks_compact_global(planes.data_ptr(), kw, g, n,
-                                         out.data_ptr(), build.stream_ptr(dev))
+    if g == 0 or n == 0:
+        return out
+    lib = build.lib()
+    scratch = torch.empty(lib.sks_compact_global_scratch(g, n),
+                          dtype=torch.int32, device=dev)
+    err = lib.sks_compact_global(planes.data_ptr(), kw, g, n,
+                                 scratch.data_ptr(), out.data_ptr(),
+                                 build.stream_ptr(dev))
     build.check(err, "sks_compact_global")
     K3.launches += 1
     return out

@@ -5,6 +5,12 @@ gram_tile_scan_fused and, above its gp <= 1024 gate, the XLA scan
 ops/gram._gram_chunks_packed: entry (a, b) of the result counts the keys
 shared by genomes a and b, the diagonal holds the sketch sizes.  The JAX
 functions return float32 (exact, counts < 2^24); the port returns int32.
+The kernel takes the sum over runs of the 0/1 run multi-hots' products on
+the int8 tensor cores, for any gp the 16-bit gid field of its chunk
+entries holds (gp <= 65,536).  It sizes its own segments of the stream:
+whole 4,096-entry chunks less 64 entries each, for about 264 blocks over
+all 128 x 128 output tiles, two resident on each of the H100's 132 SMs
+(csrc/gram_tiles.cu says why).
 """
 from __future__ import annotations
 
@@ -16,8 +22,6 @@ from . import build
 
 LANES = 128
 K6 = build.KERNELS["K6"]
-_MIN_SEGMENT = 4096       # stream entries per block, at least
-_TARGET_BLOCKS = 1056     # ~8 blocks for each of the H100's 132 SMs
 
 
 def _shape(sw: torch.Tensor, gidbits: int, gp: int, split: Optional[int]):
@@ -53,13 +57,9 @@ def gram_tile_scan(sw: torch.Tensor, gidbits: int, gp: int, *,
     out = torch.zeros((r, gp - c0), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    t = gp // LANES
-    tiles = t * (t + 1) // 2 if split is None else \
-        (r // LANES) * ((gp - c0) // LANES)
-    nseg = max(1, min(-(-n // _MIN_SEGMENT), -(-_TARGET_BLOCKS // tiles)))
     err = build.lib().sks_gram_tiles(flat.data_ptr(), pw, n, gidbits, gp,
-                                     split or 0, -(-n // nseg),
-                                     out.data_ptr(), build.stream_ptr(dev))
+                                     split or 0, 0, out.data_ptr(),
+                                     build.stream_ptr(dev))
     build.check(err, "sks_gram_tiles")
     K6.launches += 1
     return out

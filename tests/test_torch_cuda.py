@@ -82,6 +82,52 @@ def test_k2_k3_match_plain(dev, kw):
                        compact.compact_global_plain(flat))
 
 
+def holed_rows(gen, kw, g, n, frac, dev):
+    """(kw, g, n) int32 keys with a `frac` share of all-ones holes; row 0
+    all valid, the last row (g > 1) all holes, and in row 0 one word of
+    every fifth key all-ones (still valid when kw > 1)."""
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, g, n), generator=gen,
+                      dtype=torch.int32, device=dev)
+    hole = torch.rand((g, n), generator=gen, device=dev) < frac
+    hole[0] = False
+    if g > 1:
+        hole[-1] = True
+    x[:, hole] = -1
+    x[kw - 1, 0, ::5] = -1
+    return x
+
+
+@pytest.mark.parametrize("kw,g,n", [
+    (1, 1, 1), (2, 1, 2049), (3, 2, 131072), (4, 128, 4097),
+    (1, 1, 1 << 22), (2, 3, (1 << 21) + 5), (2, 128, 65536), (4, 7, 100)])
+def test_k3_hard_inputs_match_plain(dev, kw, g, n):
+    """K3 over G 1-128 and n 1 to 2^22, n not a multiple of its 2,048-slot
+    tiles, rows of more than 1,024 tiles (two rounds of the offset scan),
+    all-valid and all-sentinel rows."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + g)
+    x = holed_rows(gen, kw, g, n, 0.4, dev)
+    build.reset_launches()
+    got = compact.compact_global(x)
+    want = compact.compact_global_plain(x)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K3"].launches == 1
+    assert torch.equal(got, want)
+
+
+@settings(max_examples=60, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(kw=st.integers(1, 4), g=st.integers(1, 6), n=st.integers(1, 300000),
+       frac=st.floats(0.0, 1.0), seed=st.integers(0, 2 ** 31 - 1))
+def test_k3_property(dev, kw, g, n, frac, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = holed_rows(gen, kw, g, n, frac, dev)
+    got = compact.compact_global(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, compact.compact_global_plain(x))
+
+
 @pytest.mark.parametrize("kw", [1, 2, 3, 4])
 @pytest.mark.parametrize("n", [1024, 65536])
 def test_k4_matches_plain(dev, n, kw):
@@ -113,9 +159,10 @@ def test_sketch_step_counts_every_kernel(dev):
         assert torch.equal(a.cpu(), b)
 
 
-def packed_runs(dev, g, cap, key_bits, gidbits, pool, per, seed):
+def packed_runs(dev, g, cap, key_bits, gidbits, pool, per, seed, every=0):
     """(pw, g*cap/128, 128) packed planes of g ascending genome runs whose
-    keys come from one shared pool (long equal-key runs)."""
+    keys come from one shared pool (long equal-key runs); the `every`
+    smallest pool keys are in every genome."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     kw = gram._guard_words(key_bits)
@@ -123,8 +170,12 @@ def packed_runs(dev, g, cap, key_bits, gidbits, pool, per, seed):
                          device=dev).unique()
     pick = torch.rand((g, vals.numel()), generator=gen, device=dev) \
         < per / vals.numel()
+    pick[:, :every] = True
     idx = torch.where(pick, torch.arange(vals.numel(), device=dev),
                       vals.numel()).sort(1).values[:, :cap]
+    if idx.shape[1] < cap:       # a pool smaller than the sketches
+        idx = torch.cat([idx, torch.full((g, cap - idx.shape[1]),
+                                         vals.numel(), device=dev)], 1)
     ext = torch.cat([vals, torch.full((1,), -1, device=dev)])[idx]
     words = [ext & 0xFFFFFFFF, (ext >> 32) & 0xFFFFFFFF] + \
         [torch.zeros_like(ext)] * 2
@@ -136,23 +187,105 @@ def packed_runs(dev, g, cap, key_bits, gidbits, pool, per, seed):
     return planes.reshape(planes.shape[0], -1, 128)
 
 
-@pytest.mark.parametrize("g,cap,key_bits", [(128, 1024, 40), (16, 8192, 40),
-                                            (128, 1024, 128),
-                                            (2048, 256, 40)])
-def test_k5_k6_match_plain(dev, g, cap, key_bits):
+def gram_splits(gp):
+    return sorted({s for s in (128, gp // 2 // 128 * 128, gp - 128)
+                   if 0 < s < gp})
+
+
+@pytest.mark.parametrize("g,cap,key_bits,every", [
+    (128, 1024, 40, 0), (16, 8192, 40, 0), (128, 1024, 128, 0),
+    (2048, 256, 40, 0),
+    (128, 1024, 16, 1),      # pw 1, a key in every genome
+    (256, 512, 40, 2),       # pw 2
+    (640, 256, 60, 1),       # pw 3
+    (1024, 512, 90, 0),      # pw 4
+    (2048, 256, 40, 1),      # a run of 2,048 entries across chunk edges
+    (4096, 256, 40, 1),      # runs of 4,096: a whole chunk
+    (4608, 128, 40, 2)])     # runs of 4,608, open across a chunk edge
+def test_k5_k6_match_plain(dev, g, cap, key_bits, every):
     gidbits = max(1, (g - 1).bit_length())
-    runs = packed_runs(dev, g, cap, key_bits, gidbits, 3 * cap, cap // 2, g)
-    merged = sort.merge_sorted_runs(runs, cap // 128)
-    assert torch.equal(merged, sort.merge_sorted_runs_plain(runs, cap // 128))
+    runs = packed_runs(dev, g, cap, key_bits, gidbits, 3 * cap, cap // 2, g,
+                       every=every)
+    merged = sort.merge_sorted_runs_plain(runs, cap // 128)
+    if g & (g - 1) == 0:         # K5 merges a power-of-two count of runs
+        assert torch.equal(sort.merge_sorted_runs(runs, cap // 128), merged)
     gp = max(128, g)
-    assert torch.equal(gram_tiles.gram_tile_scan(merged, gidbits, gp),
-                       gram_tiles.gram_tile_scan_plain(merged, gidbits, gp))
-    for split in (128, gp - 128):
-        if 0 < split < gp:
-            assert torch.equal(
-                gram_tiles.gram_tile_scan(merged, gidbits, gp, split=split),
-                gram_tiles.gram_tile_scan_plain(merged, gidbits, gp,
-                                                split=split))
+    build.reset_launches()
+    got = gram_tiles.gram_tile_scan(merged, gidbits, gp)
+    want = gram_tiles.gram_tile_scan_plain(merged, gidbits, gp)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K6"].launches == 1
+    assert torch.equal(got, want)
+    assert int(got[:g, :g].min()) >= every
+    for split in gram_splits(gp):
+        assert torch.equal(
+            gram_tiles.gram_tile_scan(merged, gidbits, gp, split=split),
+            gram_tiles.gram_tile_scan_plain(merged, gidbits, gp,
+                                            split=split))
+
+
+@pytest.mark.parametrize("seg", [0, 1, 333, 4097, 1 << 20])
+def test_k6_any_segment_matches_plain(dev, seg):
+    """K6's C entry at its own sizing (0) and at segment lengths it never
+    picks: a block a run start, segments that cut runs and chunks
+    anywhere, one block."""
+    g, cap, gidbits = 256, 256, 8
+    merged = sort.merge_sorted_runs_plain(
+        packed_runs(dev, g, cap, 40, gidbits, 600, 120, seg, every=1),
+        cap // 128)
+    pw = merged.shape[0]
+    flat = merged.reshape(pw, -1)
+    for split in (None, 128):
+        want = gram_tiles.gram_tile_scan_plain(merged, gidbits, 256,
+                                               split=split)
+        out = torch.zeros_like(want)
+        err = build.lib().sks_gram_tiles(
+            flat.data_ptr(), pw, flat.shape[1], gidbits, 256, split or 0,
+            seg, out.data_ptr(), build.stream_ptr(dev))
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("pw", [1, 5])
+def test_k6_empty_and_sentinel_streams(dev, pw):
+    empty = torch.empty((pw, 0), dtype=torch.int32, device=dev)
+    assert torch.equal(gram_tiles.gram_tile_scan(empty, 8, 256),
+                       torch.zeros((256, 256), dtype=torch.int32,
+                                   device=dev))
+    sent = torch.full((pw, 40, 128), -1, dtype=torch.int32, device=dev)
+    for split in (None, 128):
+        build.reset_launches()
+        got = gram_tiles.gram_tile_scan(sent, 8, 256, split=split)
+        torch.cuda.synchronize()
+        assert build.KERNELS["K6"].launches == 1
+        assert got.shape == (256 if split is None else 128,
+                             256 - (split or 0))
+        assert int(got.abs().sum()) == 0
+    got = gram_tiles.gram_tile_scan(sent, 12, 4096)
+    torch.cuda.synchronize()
+    assert got.shape == (4096, 4096) and int(got.abs().sum()) == 0
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(g=st.integers(2, 3000), per=st.integers(1, 250),
+       spread=st.integers(1, 16), every=st.integers(0, 3),
+       key_bits=st.sampled_from([16, 40, 60, 90, 128]), split=st.booleans(),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_k6_property(dev, g, per, spread, every, key_bits, split, seed):
+    """Over genome count, sketch size, key sharing (the pool is `spread`
+    times the sketch size), keys in every genome, pw 1-5, full and split
+    mode: K6 equals its plain version."""
+    cap, gidbits = 256, max(1, (g - 1).bit_length())
+    gp = max(128, -(-g // 128) * 128)
+    runs = packed_runs(dev, g, cap, key_bits, gidbits, spread * per + every,
+                       per, seed, every=every)
+    merged = sort.merge_sorted_runs_plain(runs, cap // 128)
+    cut = gram_splits(gp)[0] if split and gp > 128 else None
+    got = gram_tiles.gram_tile_scan(merged, gidbits, gp, split=cut)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gram_tiles.gram_tile_scan_plain(
+        merged, gidbits, gp, split=cut))
 
 
 @pytest.mark.parametrize("rows,key_bits", [(1, 40), (64, 40), (256, 128)])
