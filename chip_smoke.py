@@ -12,7 +12,8 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      bit, and time both with CUDA events: K1-K4 at the sketch step's shapes
      (n = 8,388,608 windows for kw = 1..4; the compaction stages the
      planner gives; K3 also at G 1-128 and n 1 to 2^22 with all-valid and
-     all-sentinel rows; the sort at 65,536 keys, G = 2); K5 and K6 at
+     all-sentinel rows; K4 at 65,536 keys, G = 2, kw 1-4, each timed, and
+     at N = 1,024 to 2^20 with all-sentinel and all-equal rows); K5 and K6 at
      config 2's shapes (128 runs of 32,768 entries, pw 2, gp 128), at pw 5,
      and K6 at pw 1, 3 and 4, at gp 2048 (2,048 runs of 2,048, a key in
      every genome) and gp 8192 (runs of 8,192, open across chunk edges),
@@ -79,16 +80,23 @@ kernel must have been launched by the path that uses it, and K7 by phases
 K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
 every pw instance, from cuobjdump -sass).
 
+The extract kernels' compiled code must hold no CALL (the 64-bit division
+routine: the filter is a multiply-high), and the build's -Xptxas=-v
+registers and spills of K7's and K4's kernels are printed.
+
 Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}: launches on the paths, max_abs_err, kernel, plain and
 torch.sort-yardstick times, and the bound from the kernel's bytes or, for
-K1, K7 and K11, its instructions at its timed shape, counted from the
-compiled code with cuobjdump, for K6 its int8 tensor operations on the
-runs it keeps; for K5, K9 and K10 also the device launches of one call,
-from torch.profiler, and the fraction of the bound; K6 at both its timed
+K1, K7 and K11, the instructions a window cannot skip at its timed shape
+(the slide, the select, the hash and the filter, counted from probes'
+compiled code with cuobjdump), for K6 its int8 tensor operations on the
+runs it keeps; for K4, K5, K9 and K10 also the device launches of one
+call, from torch.profiler; K4 its device time by kernel, its grids and
+its time at kw 1-4; K7 its seed-batch launch; K6 at both its timed
 shapes, K3 with the grids the profiler recorded), a line of the profiled
-sums of K5, K10, K6 and K3 over phases 6, 7 and 8(b) with K3's bytes on
-those paths, and as the LAST line
+sums of K4, K7, K5, K10, K6 and K3 over phases 6, 7 and 8(b) with K3's
+bytes on those paths and K4's launches by grid in 8(b), and as the LAST
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -129,10 +137,12 @@ LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
 # so no instruction stream runs faster than 67e12 / 2 thread-instructions
 # a second.  The extract kernels' instructions a window are counted from
 # their SASS (extract_op_counts).
-# The kernels of the all-pairs paths, by the names the profiler shows: K5's
-# and K10's in csrc/sort.cu, K6's in csrc/gram_tiles.cu, K3's three in
-# csrc/compact.cu.
-PATH_KERNELS = {"K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
+# The kernels of the profiled paths, by the names the profiler shows: K4's,
+# K5's and K10's in csrc/sort.cu, K7's in csrc/extract.cu, K6's in
+# csrc/gram_tiles.cu, K3's three in csrc/compact.cu.
+PATH_KERNELS = {"K4": ("reg_tile_sort_kernel", "sort_level_kernel"),
+                "K7": ("slide_kernel",),
+                "K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
                 "K10": ("merge_pair_kernel",), "K6": ("gram_mma_kernel",),
                 "K3": ("compact_count_kernel", "compact_offset_kernel",
                        "compact_scatter_kernel")}
@@ -140,62 +150,54 @@ HBM_BYTES_PER_S = 3.35e12
 INSTRUCTIONS_PER_S = 67e12 / 2
 INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core operations
 # Probes of csrc/extract.cu's device functions, compiled like the library
-# and read with cuobjdump: each is one thread's frame (its index, two
+# and read with cuobjdump: each is one thread's frame (its index, six
 # 64-bit loads, one store) around one piece of a window's work, so a
-# probe's instructions less probe_frame's are that piece's.  The window
-# (20), the hash (modern) and the key words carried (2) are fixed, as in
+# probe's instructions less probe_frame's are that piece's: the slide of
+# both strands by one code (with the two code streams' shifts), the
+# select (both strands masked, compared as 128-bit values, the smaller
+# taken), and the hash with the filter.  The hash (modern) is fixed, as in
 # every timed launch, so the compiler keeps only the code such a window
-# runs: no other shift case, no legacy hash, no loop.
+# runs: no legacy hash, no loop.
 PROBES_CU = r"""
 #include "extract.cu"
 
 #define PROBE(name)                                                         \
-  extern "C" __global__ void name(const uint64_t* q, int64_t pw,            \
-                                  uint64_t mask_lo, uint64_t mask_hi,       \
-                                  uint64_t salt, uint32_t scale,            \
-                                  uint64_t* out)
+  extern "C" __global__ void name(const uint64_t* q, uint64_t mask_lo,      \
+                                  uint64_t mask_hi, uint64_t salt,          \
+                                  uint64_t magic, uint32_t scale, int sh1,  \
+                                  int sh2, uint64_t* out)
 #define PROBE_FRAME                                                         \
-  constexpr int window = 20;                                                \
   constexpr bool legacy = false;                                            \
   const int64_t t = blockIdx.x * 128ll + threadIdx.x;                       \
   const sks::Seed sd{mask_lo, mask_hi, salt};                               \
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(q);                 \
-  uint64_t lo = q[2 * t], hi = q[2 * t + 1];
+  const sks::Filter filt{magic, scale, sh1, sh2};                           \
+  const uint64_t a = q[6 * t], b = q[6 * t + 1], c = q[6 * t + 2],          \
+                 d = q[6 * t + 3], e = q[6 * t + 4], f = q[6 * t + 5];
 
 PROBE(probe_frame) {
   PROBE_FRAME
-  out[t] = lo ^ hi;
+  out[t] = a ^ b ^ c ^ d ^ e ^ f;
+}
+PROBE(probe_slide) {
+  PROBE_FRAME
+  sks::Strands st{a, b, c, d};
+  sks::slide(st, static_cast<uint32_t>(e & 3), static_cast<uint32_t>(f & 3));
+  out[t] = st.f_lo ^ st.f_hi ^ st.s_lo ^ st.s_hi ^ (e >> 2) ^ (f >> 2);
+}
+PROBE(probe_select) {
+  PROBE_FRAME
+  const sks::Strands st{a, b, c, d};
+  uint64_t lo, hi;
+  sks::strand_key(st, sd, lo, hi);
+  out[t] = lo ^ hi ^ e ^ f;
 }
 PROBE(probe_hash) {
   PROBE_FRAME
-  out[t] = (sks::hash_bitset128(lo, hi, legacy) ^ sd.salt) % scale == 0;
-}
-PROBE(probe_key_hash) {
-  PROBE_FRAME
-  sks::canonical_key(p, pw, t, window, sd, lo, hi);
-  out[t] = (sks::hash_bitset128(lo, hi, legacy) ^ sd.salt) % scale == 0;
-}
-PROBE(probe_valid) {
-  PROBE_FRAME
-  const sks::RunPlane runs{reinterpret_cast<const int32_t*>(p), pw};
-  out[t] = sks::window_valid(runs, 0, t, t + window - 1) ? lo : hi;
-}
-PROBE(probe_row) {
-  PROBE_FRAME
-  const sks::CompactRows rows{reinterpret_cast<uint32_t*>(out),
-                              reinterpret_cast<int32_t*>(out) + 1, pw,
-                              static_cast<int>(scale), 2};
-  rows.store(blockIdx.y, blockIdx.x, t, (lo ^ hi) & 1, lo, hi);
-}
-PROBE(probe_emit) {
-  PROBE_FRAME
-  const sks::EmitAll all{reinterpret_cast<uint32_t*>(out),
-                         reinterpret_cast<uint8_t*>(out) + 1, pw};
-  all.store(blockIdx.y, blockIdx.x, t, (lo ^ hi) & 1, lo, hi);
+  out[t] = sks::fmh_keep(sks::hash_bitset128(a, b, legacy), sd.salt, filt)
+               ? c ^ d : e ^ f;
 }
 """
-PROBES = ("probe_frame", "probe_hash", "probe_key_hash", "probe_valid",
-          "probe_row", "probe_emit")
+PROBES = ("probe_frame", "probe_slide", "probe_select", "probe_hash")
 SASS_INSTRUCTION = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -224,18 +226,18 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile_kernels(fn) -> dict:
-    """Run fn() once under torch.profiler: {kernel: [device ms, launches]}
-    of the port's kernels (those in namespace sks), summed over template
-    instances.  Only device activity is traced, which keeps the profiled
-    run short (phase 8(b) ~6 s on an H100 80GB HBM3 at 700 W, ~24 s with
-    the host's ops traced too)."""
+def _profiled(fn):
+    """fn() once under torch.profiler, device activity only."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _kernel_sums(prof) -> dict:
     out = {}
     for e in prof.key_averages():
         if "sks::" not in e.key:
@@ -249,6 +251,35 @@ def profile_kernels(fn) -> dict:
         acc[0] += us / 1e3
         acc[1] += e.count
     return out
+
+
+def _trace_grids(prof, names) -> dict:
+    """The grid of each launch of the named kernels, as the profiler's
+    trace records it (a kernel event's "grid" argument; None where the
+    trace has none)."""
+    from spaced_kmer_sketching_tpu_torch.utils.native import BUILD_DIR
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    grids = {}
+    for e in events:
+        m = re.search(r"sks::(?:\(anonymous namespace\)::)?(\w+)",
+                      str(e.get("name", "")))
+        if e.get("cat") == "kernel" and m and m.group(1) in names:
+            grids.setdefault(m.group(1), []).append(
+                (e.get("args") or {}).get("grid"))
+    return grids
+
+
+def profile_kernels(fn) -> dict:
+    """Run fn() once under torch.profiler: {kernel: [device ms, launches]}
+    of the port's kernels (those in namespace sks), summed over template
+    instances.  Only device activity is traced, which keeps the profiled
+    run short (phase 8(b) ~6 s on an H100 80GB HBM3 at 700 W, ~24 s with
+    the host's ops traced too)."""
+    return _kernel_sums(_profiled(fn))
 
 
 def device_ms(fn, reps: int) -> float:
@@ -266,38 +297,17 @@ def device_launches(fn) -> int:
 
 
 def kernel_grids(fn, names) -> dict:
-    """The grid of each launch of the named kernels in one fn() call, as
-    torch.profiler's trace records it (a kernel event's "grid" argument;
-    None where the trace has none)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from spaced_kmer_sketching_tpu_torch.utils.native import BUILD_DIR
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text()).get("traceEvents", [])
-    grids = {}
-    for e in events:
-        m = re.search(r"sks::(?:\(anonymous namespace\)::)?(\w+)",
-                      str(e.get("name", "")))
-        if e.get("cat") == "kernel" and m and m.group(1) in names:
-            grids.setdefault(m.group(1), []).append(
-                (e.get("args") or {}).get("grid"))
-    return grids
+    """The grid of each launch of the named kernels in one fn() call."""
+    return _trace_grids(_profiled(fn), names)
 
 
-def profile_path(what: str, fn) -> dict:
+def profile_path(what: str, fn, grid_names=()) -> dict:
     """A second, profiled run of a path after its timed one: prints the
-    summed device time and launches of the kernels of K5, K10, K6 and K3
-    and of every kernel of the port, and K3's bytes on the path: each
+    summed device time and launches of the kernels of K4, K7, K5, K10, K6
+    and K3 and of every kernel of the port, K3's bytes on the path (each
     compact_global call's planes read once and written once, their time at
-    the HBM rate, and that bound's share of K3's profiled sum."""
+    the HBM rate, and that bound's share of K3's profiled sum) and, for
+    the kernels in grid_names, how many launches had each grid."""
     from spaced_kmer_sketching_tpu_torch.ops import sketch as sketch_ops
     k3 = {"calls": 0, "bytes": 0}
     orig = sketch_ops.compact_global
@@ -309,22 +319,32 @@ def profile_path(what: str, fn) -> dict:
     sketch_ops.compact_global = counting
     t0 = time.perf_counter()
     try:
-        kernels = profile_kernels(fn)
+        prof = _profiled(fn)
     finally:
         sketch_ops.compact_global = orig
     wall = time.perf_counter() - t0
+    kernels = _kernel_sums(prof)
     sums = {key: [sum(kernels.get(n, [0.0, 0])[i] for n in names)
                   for i in (0, 1)] for key, names in PATH_KERNELS.items()}
     k3["bound_ms"] = k3["bytes"] / HBM_BYTES_PER_S * 1e3
     k3["share_of_bound"] = (k3["bound_ms"] / sums["K3"][0]
                             if sums["K3"][0] else None)
+    grids = {}
+    for name, gs in _trace_grids(prof, grid_names).items():
+        for grid in gs:
+            key = str(grid)
+            grids.setdefault(name, {})[key] = grids.get(name, {}).get(key,
+                                                                      0) + 1
     print(f"{what} profile ({wall:.3f} s wall, profiled): "
           + ", ".join(f"{k} {v[0]:.3f} ms device over {v[1]} launches"
                       for k, v in sums.items())
           + f"; K3 bytes {json.dumps(k3)}; every kernel [ms, launches] "
           + json.dumps({k: [round(v[0], 3), v[1]]
-                        for k, v in sorted(kernels.items())}))
+                        for k, v in sorted(kernels.items())})
+          + (f"; launches by grid {json.dumps(grids)}" if grids else ""))
     sums["K3 bytes"] = k3
+    if grids:
+        sums["grids"] = grids
     return sums
 
 
@@ -417,20 +437,19 @@ def k6_kept_runs(sw, gidbits: int, gp: int, split=None) -> int:
 
 
 def extract_op_counts(build_dir: pathlib.Path) -> dict:
-    """Instructions a window of the extract kernels' functions needs, from
+    """Instructions a window of the extract kernels' function needs, from
     the compiled probes (PROBES_CU): {"K1": (every window, every valid
     window), "K11": (...), "sass": each probe's count}.
 
-    Every window of K1 needs its frame, the run-id test and its share of
-    the row compaction and stores (the valid and row probes, one frame);
-    a valid one also the key, the hash and the filter (the key-and-hash
-    probe less a frame).  K7's function is K1's with the run ids given as
-    bounds, which needs no per-window search (one search a warp would do),
-    so K7 takes K1's counts.  K11 computes the key at every window (the
-    key-and-hash probe less the hash probe) and stores it (the emit probe);
-    a valid window also needs the hash and the filter.  The run-id test is
-    counted on a valid window's path, which an invalid one cuts short by
-    a few instructions."""
+    The count is the work a window cannot skip, not what a kernel issues:
+    every window slides both strands by one code; a valid one of K1 and K7
+    also masks and compares them (the select) and hashes and filters the
+    key.  K11 computes the key at every window, so every window pays the
+    slide and the select and a valid one the hash and the filter.  Neither
+    a per-window run search nor a per-window strand rebuild is charged: K7
+    searches once a thread and slides, and K1 and K11, which rebuild both
+    strands at every window, are charged the same work, so their bound says
+    how far their one-thread-per-window body is from the sliding one."""
     from spaced_kmer_sketching_tpu_torch.ops.cuda import build
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         src = pathlib.Path(tmp) / "probes.cu"
@@ -442,14 +461,54 @@ def extract_op_counts(build_dir: pathlib.Path) -> dict:
         sass = sass_instructions(cubin)
     need(set(PROBES) <= set(sass), f"probe SASS functions: {sorted(sass)}")
     c = {name[len("probe_"):]: sass[name] for name in PROBES}
-    key = c["key_hash"] - c["hash"]
-    hash_ = c["hash"] - c["frame"]
-    need(min(key, hash_, c["valid"] - c["frame"], c["row"] - c["frame"],
-             c["emit"] - c["frame"]) > 0,
-         f"probe SASS counts out of order: {c}")
-    return {"K1": (c["valid"] + c["row"] - c["frame"], key + hash_),
-            "K11": (c["valid"] + c["emit"] - c["frame"] + key, hash_),
+    slide, select, hash_ = (c[k] - c["frame"] for k in ("slide", "select",
+                                                         "hash"))
+    need(min(slide, select, hash_) > 0, f"probe SASS counts out of order: {c}")
+    return {"K1": (slide, select + hash_), "K11": (slide + select, hash_),
             "sass": c}
+
+
+def no_division_calls(so: pathlib.Path) -> dict:
+    """The extract kernels' compiled code (K1's and K11's extract_kernel,
+    K7's slide_kernel, every instance): fails if any holds a CALL, which
+    is how a 64-bit division or remainder compiles (nvcc's subroutine).
+    Returns each kernel's instance count and instructions."""
+    found = {n: ops for n, ops in sass_opcodes(so).items()
+             if "extract_kernel" in n or "slide_kernel" in n}
+    calls = {n: [op for op in ops if op.startswith("CALL")]
+             for n, ops in found.items()}
+    need(found and not any(calls.values()),
+         f"extract kernels with CALLs (a division routine?): {calls}")
+    out = {}
+    for n, ops in found.items():
+        key = "slide_kernel" if "slide_kernel" in n else "extract_kernel"
+        acc = out.setdefault(key, [0, 0])
+        acc[0] += 1
+        acc[1] += len(ops)
+    return out
+
+
+def ptxas_usage(so: pathlib.Path, names) -> dict:
+    """Registers and spill bytes of each instance of the named kernels,
+    from the build's -Xptxas=-v log beside the library."""
+    usage, name = {}, None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in names if k in m.group(1)), None)
+            if name is not None:
+                usage.setdefault(name, []).append({})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name][-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name][-1]["registers"] = int(m.group(1))
+    return usage
 
 
 def valid_windows(rid: np.ndarray, window: int) -> int:
@@ -607,8 +666,10 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
         plain_ms=timer(lambda: compact.compact_global_plain(chain_out), 5),
         **bound(2 * nbytes(chain_out)))
 
-    # K4 at 65,536 keys, G = 2, kw = 1..4, with duplicates and sentinels
-    err = 0
+    # K4 at 65,536 keys, G = 2, kw = 1..4, with duplicates and sentinels,
+    # each kw timed; then N = 1,024 to 2^20 with all-sentinel and all-equal
+    # rows
+    err, by_kw = 0, {}
     for kw in (1, 2, 3, 4):
         z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, 2, 65536),
                           dtype=torch.int32, device=dev)
@@ -616,16 +677,37 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
         z[:, :, -1000:] = -1
         e = max_abs_err([sort.sort_rows(z)], [sort.sort_rows_plain(z)])
         err = max(err, e)
-        print(f"K4 kw={kw} n=65536 G=2 max_abs_err={e}")
+        by_kw[kw] = timer(lambda: sort.sort_rows(z), 20)
+        print(f"K4 kw={kw} n=65536 G=2 max_abs_err={e} {by_kw[kw]} ms")
         if kw == 2:
             key64 = sort_key64(z)
-            res["K4"] = dict(ms=timer(lambda: sort.sort_rows(z), 20),
+            res["K4"] = dict(ms=by_kw[kw],
                              plain_ms=timer(lambda: sort.sort_rows_plain(z),
                                               5),
                              library_ms=timer(
                                  lambda: torch.sort(key64, dim=-1), 20),
+                             device_launches=device_launches(
+                                 lambda: sort.sort_rows(z)),
+                             device={k: [v[0] / 20, v[1] / 20] for k, v in
+                                     profile_kernels(lambda: [
+                                         sort.sort_rows(z)
+                                         for _ in range(20)]).items()},
+                             grid=kernel_grids(lambda: sort.sort_rows(z),
+                                               PATH_KERNELS["K4"]),
                              **bound(2 * nbytes(z)))
-    res["K4"]["max_abs_err"] = err
+    for kw, g4, n4 in ((1, 3, 1024), (2, 3, 1024), (3, 3, 2048),
+                       (4, 3, 4096), (2, 3, 16384), (3, 3, 8192),
+                       (1, 2, 1 << 20), (2, 3, 1 << 20), (3, 1, 1 << 20),
+                       (4, 2, 1 << 20)):
+        z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, g4, n4),
+                          dtype=torch.int32, device=dev)
+        z[:, 0, ::5] = z[:, 0, 2:3]
+        z[:, 1:2] = -1                            # all sentinels
+        z[:, 2:] = z[:, 2:, :1]                   # all equal
+        e = max_abs_err([sort.sort_rows(z)], [sort.sort_rows_plain(z)])
+        err = max(err, e)
+        print(f"K4 kw={kw} n={n4} G={g4} max_abs_err={e}")
+    res["K4"].update(max_abs_err=err, ms_by_kw=by_kw)
     for name, r in res.items():
         need(r["max_abs_err"] <= TOLERANCE,
              f"{name} disagrees with its plain version: {r}")
@@ -1825,7 +1907,8 @@ def run_config4_device(seed, pool) -> dict:
           + json.dumps(launches))
     for key in ("K7", "K5", "K6", "K10"):
         need(launches[key] > 0, f"{key} was not launched by phase 8b")
-    prof = profile_path("phase 8b", lambda: pipe.all_pairs(src, g, n))
+    prof = profile_path("phase 8b", lambda: pipe.all_pairs(src, g, n),
+                        PATH_KERNELS["K4"])
 
     t0 = time.perf_counter()
     out = res.inter
@@ -1896,10 +1979,15 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ops = extract_op_counts(so.parent)
     print(f"probe SASS instructions (cuobjdump -sass): "
-          f"{json.dumps(ops['sass'])}; "
-          f"a window of K1 and K7 {ops['K1'][0]} + {ops['K1'][1]} if valid, "
-          f"of K11 {ops['K11'][0]} + {ops['K11'][1]} if valid "
-          f"({time.perf_counter() - t0:.3f} s)")
+          f"{json.dumps(ops['sass'])}; the work a window cannot skip: of K1 "
+          f"and K7 {ops['K1'][0]} (the slide) + {ops['K1'][1]} if valid "
+          f"(select, hash, filter), of K11 {ops['K11'][0]} + "
+          f"{ops['K11'][1]} if valid ({time.perf_counter() - t0:.3f} s)")
+    print(f"extract kernels' SASS holds no CALL (no division routine): "
+          f"{json.dumps(no_division_calls(so))} [instances, instructions]")
+    print(f"registers and spill bytes (-Xptxas=-v): " + json.dumps(
+        ptxas_usage(so, ("slide_kernel", "extract_kernel",
+                         "reg_tile_sort_kernel", "sort_level_kernel"))))
     k6_ops = k6_tensor_cores(so)
     print(f"K6 (gram_mma_kernel, pw 1-5) tensor-core instructions "
           f"(cuobjdump -sass): {json.dumps(k6_ops)}")
@@ -1971,6 +2059,12 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if key == "K4":
+            kernels[-1].update(device_launches_per_call=r["device_launches"],
+                               grid=r["grid"], ms_by_kw=r["ms_by_kw"],
+                               device=r["device"])
+        if key == "K7":
+            kernels[-1].update(seed_batch=kres["K7 seeds"])
         if key in ("K5", "K9", "K10"):
             kernels[-1].update(
                 device_launches_per_call=r["device_launches"],

@@ -37,29 +37,53 @@
 // seed y, and every seed reads the one shared genome, so S seeds cost one
 // launch and one read of the genome: the TPU kernel's `shared` DMA).
 //
-// What bounds it on an H100: instruction throughput, not bytes.  A window
+// What bounds it on an H100: instruction issue, not bytes.  A window
 // reads ~4.25 B in K1 (one int32 run id, a sixteenth of four code words;
-// K7 reads no run-id plane at all) but a valid one executes ~320
-// instructions: two 64-bit bit reversals, ~10 64-bit multiplies of the
-// hash and a 64-bit modulo (114 for every window and 203 more for a valid
-// one in the compiled code, as chip_smoke.py counts them from the SASS).
-// At n = 8.4M windows, 5M of them valid, that is ~36 MB of traffic (about
-// 11 us at 3.35 TB/s) against ~2e9 instructions (~60 us at the card's
-// limit of 132 SMs x 4 warp instructions a clock).  The design
-// therefore keeps everything in registers: one thread per window, the key
-// and hash in native 64-bit arithmetic (the TPU kernel emulated 64-bit on
-// u32 lane pairs), neighbouring threads read the same packed words
-// (broadcast, coalesced), and the row ranking costs four
-// __ballot_sync/__popc and one shared-memory exchange per 128 windows.
-// K7's run id is an upper-bound binary search of the genome's bounds row
-// in global memory, ~log2(K) + 2 loads a thread: the threads of a block
-// search neighbouring positions, so they read the same few cache lines
-// (L1 hits), and K has no limit (the TPU kernel kept the bounds in SMEM
-// and its caller fell back to XLA past g * K = 4096).
+// K7 reads no run-id plane at all) but a valid one needs the boost hash
+// (six 64-bit multiplies, shifts and xors), the canonical choice between
+// two masked 128-bit strands and the FracMinHash filter.  At n = 8.4M
+// windows, 5M of them valid, that is ~36 MB of traffic (about 11 us at
+// 3.35 TB/s) against ~0.6e9 instructions that no design can skip (~18 us
+// at the card's limit of 132 SMs x 4 warp instructions a clock: 18 a
+// window for the slide, 90 a valid one for the select, the hash and the
+// filter, as chip_smoke.py counts them from the SASS of probes).  On an
+// H100 80GB HBM3 at 700 W, K7 takes 0.227-0.229 ms on a 2^25-window
+// streaming segment against that bound's 0.108 ms, where the one-thread-
+// per-window body took 0.639 ms, and 0.34-0.36 ms for 8 seeds over 2^23
+// codes, from 0.77-0.85 (PERF.md).  So every design here keeps the key
+// and the hash in registers, in native 64-bit arithmetic (the TPU kernel
+// emulated 64-bit on u32 lane pairs), and the filter divides by nothing:
+// (h ^ salt) % scale is a multiply-high by a reciprocal the wrapper
+// computes once per launch, a shift, a multiply and a subtract
+// (fmh_keep: Granlund and Montgomery's round-up method, exact for every
+// 64-bit h and every scale in 1..2^31 - 1).
+//
+// K1 and K11 (extract_kernel) keep one thread per window: each builds its
+// window's 128 bits from five packed words and both strands from scratch.
+// K7 (slide_kernel) is a sliding multi-window kernel.  A thread takes
+// SLIDE_C = 32 consecutive windows from a word-aligned t0: it reads the
+// words its windows touch once (codes t0 .. t0 + 95, at most seven
+// words), builds both strands at t0 and then, from window t to t + 1,
+// shifts one code into each (forward F << 2 | c[t + w]; the complement's
+// source S >> 2 | c[t + 64] << 126), so a window costs its slide, the
+// mask, the compare and, if valid, the hash and the filter.
+// Validity is one upper-bound search of the genome's bounds row a thread
+// (not a window), then a walk forward as its windows pass run starts.
+// Four threads of one warp hold a 128-window row: each keeps a 32-bit
+// kept mask, a shuffle scan over the four gives each its first slot, and
+// each rebuilds (as K1 builds a key) and writes only its kept keys (on
+// average 1 in `scale` windows) below k_slots; no block barrier.  K has
+// no limit (the TPU kernel kept the bounds in SMEM and its caller fell
+// back to XLA past g * K = 4096).
 #include "common.cuh"
 
 namespace sks {
 namespace {
+
+constexpr int SLIDE_C = 32;                    // windows a K7 thread
+constexpr int ROW_THREADS = LANES / SLIDE_C;   // K7 threads a 128-window row
+constexpr int SLIDE_THREADS = 256;             // 64 rows a K7 block
+constexpr int FAR = 1 << 30;                   // "no bound ahead"
 
 __device__ __forceinline__ uint64_t hash_mix(uint64_t x) {
   const uint64_t m = 0x0E9846AF9B1A615DULL;
@@ -94,6 +118,28 @@ __device__ __forceinline__ uint64_t hash_bitset128(uint64_t lo, uint64_t hi,
     return combine_legacy(128, combine_legacy(combine_legacy(0, lo), hi));
   }
   return combine_modern(128, combine_modern(combine_modern(0, lo), hi));
+}
+
+// The FracMinHash divisor `scale` with its round-up reciprocal (Granlund
+// and Montgomery 1994, figure 4.1), which the wrapper computes on the
+// host once per launch (ops/cuda/extract.fmh_divisor): l = ceil(log2
+// scale), magic = floor(2^64 (2^l - scale) / scale) + 1 < 2^64, sh1 =
+// min(l, 1), sh2 = max(l - 1, 0).
+struct Filter {
+  uint64_t magic;
+  uint32_t scale;
+  int sh1, sh2;
+};
+
+// keep = (hash ^ salt) % scale == 0 with no division: q = floor(h /
+// scale) = (t + ((h - t) >> sh1)) >> sh2 with t the high word of magic *
+// h, exact for every 64-bit h; the remainder is h - q * scale.
+__device__ __forceinline__ bool fmh_keep(uint64_t hash, uint64_t salt,
+                                         const Filter& f) {
+  const uint64_t h = hash ^ salt;
+  const uint64_t t = __umul64hi(f.magic, h);
+  const uint64_t q = (t + ((h - t) >> f.sh1)) >> f.sh2;
+  return h - q * f.scale == 0;
 }
 
 // Reverse the 32 2-bit groups of x, keeping each group's bit order.
@@ -133,22 +179,6 @@ __device__ __forceinline__ bool window_valid(const RunPlane& s, int64_t g,
   return ra >= 0 && ra == rg[last];
 }
 
-__device__ __forceinline__ bool window_valid(const RunBounds& s, int64_t g,
-                                             int64_t t, int64_t last) {
-  if (last >= s.n || last >= s.vlen[g]) return false;
-  const int32_t* bg = s.bounds + g * s.k;
-  int lo = 0, hi = s.k;  // upper bound: lo = #(bounds <= t)
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (bg[mid] <= t) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return s.rid0[g] + lo >= 0 && (lo == s.k || bg[lo] > last);
-}
-
 // One seed for every grid row (grid row y = genome y), or one seed per
 // grid row over ONE shared genome (seed-batch mode: grid row y = seed y,
 // genome row stride 0; BASELINE config 3's S seeds in one launch).
@@ -170,13 +200,47 @@ struct SeedRows {
   __device__ __forceinline__ int64_t genome(int64_t) const { return 0; }
 };
 
-// The canonical masked key of the window starting at code t, from raw
-// packed words (zero past the last word).
-__device__ __forceinline__ void canonical_key(const uint32_t* pg,
-                                              int64_t packed_words, int64_t t,
-                                              int window, const Seed& sd,
-                                              uint64_t& key_lo,
-                                              uint64_t& key_hi) {
+// Both strands of the window starting at code t before the seed's mask
+// (src/kmer_sliding.cpp:112-186 slides the same two):
+//   f: the forward strand, code t + w - 1 at bits 0-1 and code t at bits
+//      2w - 2 and 2w - 1; bits at 2w and above hold older codes (or 0),
+//      which the mask drops;
+//   s: the 64 codes from t, code t + j at bits 2j and 2j + 1; its
+//      complement ~s is the reverse-complement strand (complement code
+//      3 - c == ~c, at the same position).
+struct Strands {
+  uint64_t f_lo, f_hi, s_lo, s_hi;
+};
+
+// The next window's strands: code cf (t + w) enters f at the bottom, code
+// cs (t + 64) enters s at the top.
+__device__ __forceinline__ void slide(Strands& st, uint32_t cf, uint32_t cs) {
+  st.f_hi = (st.f_hi << 2) | (st.f_lo >> 62);
+  st.f_lo = (st.f_lo << 2) | cf;
+  st.s_lo = (st.s_lo >> 2) | (st.s_hi << 62);
+  st.s_hi = (st.s_hi >> 2) | (static_cast<uint64_t>(cs) << 62);
+}
+
+// The canonical masked key: the masked forward strand if it is strictly
+// below the masked complement as a 128-bit value, else the complement.
+__device__ __forceinline__ void strand_key(const Strands& st, const Seed& sd,
+                                           uint64_t& key_lo,
+                                           uint64_t& key_hi) {
+  const uint64_t f_lo = st.f_lo & sd.mask_lo;
+  const uint64_t f_hi = st.f_hi & sd.mask_hi;
+  const uint64_t rc_lo = ~st.s_lo & sd.mask_lo;
+  const uint64_t rc_hi = ~st.s_hi & sd.mask_hi;
+  const bool fwd = f_hi < rc_hi || (f_hi == rc_hi && f_lo < rc_lo);
+  key_lo = fwd ? f_lo : rc_lo;
+  key_hi = fwd ? f_hi : rc_hi;
+}
+
+// Both strands of the window starting at code t, built from raw packed
+// words (zero past the last word): s from five words, f its nucleotide
+// reverse shifted down to the window's 2w bits.
+__device__ __forceinline__ Strands strands_at(const uint32_t* pg,
+                                              int64_t packed_words,
+                                              int64_t t, int window) {
   const int64_t a = t >> 4;
   const int o = 2 * static_cast<int>(t & 15);
   uint32_t v[5];
@@ -188,25 +252,29 @@ __device__ __forceinline__ void canonical_key(const uint32_t* pg,
   const uint64_t w1 = v[2] | (static_cast<uint64_t>(v[3]) << 32);
   const uint64_t w2 = v[4];
   // o == 0 would shift by 64, which C++ leaves undefined
-  const uint64_t s_lo = o ? (w0 >> o) | (w1 << (64 - o)) : w0;
-  const uint64_t s_hi = o ? (w1 >> o) | (w2 << (64 - o)) : w1;
-  const uint64_t rc_lo = ~s_lo & sd.mask_lo;
-  const uint64_t rc_hi = ~s_hi & sd.mask_hi;
-  uint64_t f_lo = rev2(s_hi);
-  uint64_t f_hi = rev2(s_lo);
+  Strands st;
+  st.s_lo = o ? (w0 >> o) | (w1 << (64 - o)) : w0;
+  st.s_hi = o ? (w1 >> o) | (w2 << (64 - o)) : w1;
+  st.f_lo = rev2(st.s_hi);
+  st.f_hi = rev2(st.s_lo);
   const int s = 128 - 2 * window;  // 0 (w = 64) .. 126
   if (s >= 64) {
-    f_lo = f_hi >> (s - 64);
-    f_hi = 0;
+    st.f_lo = st.f_hi >> (s - 64);
+    st.f_hi = 0;
   } else if (s > 0) {
-    f_lo = (f_lo >> s) | (f_hi << (64 - s));
-    f_hi >>= s;
+    st.f_lo = (st.f_lo >> s) | (st.f_hi << (64 - s));
+    st.f_hi >>= s;
   }
-  f_lo &= sd.mask_lo;
-  f_hi &= sd.mask_hi;
-  const bool fwd = f_hi < rc_hi || (f_hi == rc_hi && f_lo < rc_lo);
-  key_lo = fwd ? f_lo : rc_lo;
-  key_hi = fwd ? f_hi : rc_hi;
+  return st;
+}
+
+// The canonical masked key of the window starting at code t.
+__device__ __forceinline__ void canonical_key(const uint32_t* pg,
+                                              int64_t packed_words, int64_t t,
+                                              int window, const Seed& sd,
+                                              uint64_t& key_lo,
+                                              uint64_t& key_hi) {
+  strand_key(strands_at(pg, packed_words, t, window), sd, key_lo, key_hi);
 }
 
 // K1/K7 output: each 128-window row's first k_slots kept keys (low
@@ -219,6 +287,13 @@ struct CompactRows {
   int out_words;
   static constexpr bool kKeyEverywhere = false;
 
+  __device__ __forceinline__ uint32_t* row_out(int64_t y, int64_t row,
+                                               int64_t& plane) const {
+    plane = static_cast<int64_t>(gridDim.y) * rows * k_slots;
+    return out + (y * rows + row) * k_slots;
+  }
+
+  // K1: one thread per window, the row a block of LANES threads.
   __device__ __forceinline__ void store(int64_t y, int64_t row, int64_t,
                                         bool keep, uint64_t key_lo,
                                         uint64_t key_hi) const {
@@ -234,8 +309,8 @@ struct CompactRows {
     const int total = wcnt[0] + wcnt[1] + wcnt[2] + wcnt[3];
     const int rank = base + __popc(ballot & ((1u << lane) - 1u));
 
-    const int64_t plane = static_cast<int64_t>(gridDim.y) * rows * k_slots;
-    uint32_t* o = out + (y * rows + row) * k_slots;
+    int64_t plane;
+    uint32_t* o = row_out(y, row, plane);
     if (keep && rank < k_slots) {
       for (int q = 0; q < out_words; ++q) {
         o[q * plane + rank] = key_word(key_lo, key_hi, q);
@@ -271,12 +346,13 @@ struct EmitAll {
   }
 };
 
-// grid (rows, Y), block 128: one thread per window of one 128-window row
-// of grid row y (a genome, or a seed over the shared genome)
-template <class Runs, class Seeds, class Out>
+// K1 and K11.  grid (rows, Y), block 128: one thread per window of one
+// 128-window row of grid row y (a genome, or a seed over the shared
+// genome)
+template <class Seeds, class Out>
 __global__ void __launch_bounds__(LANES) extract_kernel(
-    const uint32_t* __restrict__ packed, int64_t packed_words, Runs runs,
-    int window, Seeds seeds, uint32_t scale, bool legacy, Out out) {
+    const uint32_t* __restrict__ packed, int64_t packed_words, RunPlane runs,
+    int window, Seeds seeds, Filter filt, bool legacy, Out out) {
   const int64_t row = blockIdx.x;
   const int64_t y = blockIdx.y;
   const int64_t t = row * LANES + threadIdx.x;
@@ -290,24 +366,179 @@ __global__ void __launch_bounds__(LANES) extract_kernel(
     canonical_key(packed + g * packed_words, packed_words, t, window, sd,
                   key_lo, key_hi);
     keep = valid &&
-           (hash_bitset128(key_lo, key_hi, legacy) ^ sd.salt) % scale == 0;
+           fmh_keep(hash_bitset128(key_lo, key_hi, legacy), sd.salt, filt);
   }
   out.store(y, row, t, keep, key_lo, key_hi);
 }
 
-template <class Runs, class Seeds, class Out>
-int launch(const void* packed, int64_t packed_words, Runs runs, int ys,
-           int64_t rows, int window, Seeds seeds, int scale, int legacy,
-           Out out, void* stream) {
-  if (ys <= 0 || ys > 65535 || rows <= 0 || window < 1 || window > 64 ||
-      scale < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// #(b[i] <= t) over an ascending row of k bounds: an upper-bound search.
+__device__ __forceinline__ int bounds_at_or_below(const int32_t* b, int k,
+                                                  int64_t t) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b[mid] <= t) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
   }
+  return lo;
+}
+
+// K7: the kept mask of the SLIDE_C windows t0 .. t0 + 31 of genome g (t0
+// a multiple of 16), bit i for window t0 + i.  Window t is valid iff t +
+// w - 1 < min(vlen, n), rid0 + #(bounds <= t) >= 0 and no bound lies in
+// (t, t + w - 1]; the thread searches the bounds once for t0 and keeps
+// cnt = #(bounds <= t) and rel = (the first bound > t) - t0 as it walks.
+__device__ __forceinline__ uint32_t slide_windows(
+    const uint32_t* pg, int64_t packed_words, const RunBounds& runs,
+    int64_t g, int64_t t0, int window, const Seed& sd, const Filter& filt,
+    bool legacy) {
+  const int64_t lim = min(static_cast<int64_t>(runs.vlen[g]), runs.n);
+  const int64_t room = lim - (window - 1) - t0;  // windows that end in lim
+  if (room <= 0) return 0;
+  const int iend = room < SLIDE_C ? static_cast<int>(room) : SLIDE_C;
+  const int32_t* bg = runs.bounds + g * runs.k;
+  const int64_t rid0 = runs.rid0[g];
+  int cnt = bounds_at_or_below(bg, runs.k, t0);
+  auto next_rel = [&]() -> int {
+    return cnt < runs.k ? static_cast<int>(min(bg[cnt] - t0,
+                                               static_cast<int64_t>(FAR)))
+                        : FAR;
+  };
+  int rel = next_rel();
+  bool ok = rid0 + cnt >= 0;
+
+  // the codes that enter s (t0 + 64 ..) and f (t0 + w ..), 32 of each
+  const int64_t a = t0 >> 4;
+  auto word = [&](int64_t i) -> uint64_t {
+    return i < packed_words ? pg[i] : 0u;
+  };
+  uint64_t next_s = word(a + 4) | (word(a + 5) << 32);
+  const int64_t b = a + (window >> 4);
+  const int o = 2 * (window & 15);
+  const uint64_t x0 = word(b) | (word(b + 1) << 32);
+  uint64_t next_f = o ? (x0 >> o) | (word(b + 2) << (64 - o)) : x0;
+  Strands st = strands_at(pg, packed_words, t0, window);
+
+  uint32_t kept = 0;
+#pragma unroll 4
+  for (int i = 0; i < SLIDE_C; ++i) {
+    if (rel <= i) {  // a run starts at or before window i: walk past it
+      do {
+        ++cnt;
+        rel = next_rel();
+      } while (rel <= i);
+      ok = rid0 + cnt >= 0;
+    }
+    if (i < iend && ok && rel >= i + window) {
+      uint64_t lo, hi;
+      strand_key(st, sd, lo, hi);
+      if (fmh_keep(hash_bitset128(lo, hi, legacy), sd.salt, filt)) {
+        kept |= 1u << i;
+      }
+    }
+    slide(st, static_cast<uint32_t>(next_f & 3),
+          static_cast<uint32_t>(next_s & 3));
+    next_f >>= 2;
+    next_s >>= 2;
+  }
+  return kept;
+}
+
+// K7.  grid (ceil(rows * 4 / 256), Y), block 256: four threads of one
+// warp per 128-window row of grid row y (a genome, or a seed over the
+// shared genome), SLIDE_C windows each.
+template <class Seeds>
+__global__ void __launch_bounds__(SLIDE_THREADS) slide_kernel(
+    const uint32_t* __restrict__ packed, int64_t packed_words,
+    RunBounds runs, int window, Seeds seeds, Filter filt, bool legacy,
+    CompactRows out) {
+  const int64_t thread =
+      static_cast<int64_t>(blockIdx.x) * SLIDE_THREADS + threadIdx.x;
+  const int64_t row = thread / ROW_THREADS;
+  const int part = static_cast<int>(threadIdx.x) & (ROW_THREADS - 1);
+  const int64_t y = blockIdx.y;
+  const int64_t g = seeds.genome(y);
+  const Seed sd = seeds.get(y);
+  const int64_t t0 = thread * SLIDE_C;
+  const uint32_t* pg = packed + g * packed_words;
+  const bool active = row < out.rows;
+  const uint32_t kept =
+      active ? slide_windows(pg, packed_words, runs, g, t0, window, sd, filt,
+                             legacy)
+             : 0u;
+
+  // the row's kept counts, scanned across its four threads
+  const int cnt = __popc(kept);
+  int incl = cnt;
+#pragma unroll
+  for (int d = 1; d < ROW_THREADS; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, d, ROW_THREADS);
+    if (part >= d) incl += v;
+  }
+  const int total = __shfl_sync(FULL, incl, ROW_THREADS - 1, ROW_THREADS);
+  if (!active) return;
+
+  // the kept keys, rebuilt one at a time, into slots below k_slots
+  int64_t plane;
+  uint32_t* o = out.row_out(y, row, plane);
+  int slot = incl - cnt;
+  for (uint32_t m = kept; m != 0 && slot < out.k_slots; m &= m - 1, ++slot) {
+    uint64_t lo, hi;
+    canonical_key(pg, packed_words, t0 + __ffs(m) - 1, window, sd, lo, hi);
+    for (int q = 0; q < out.out_words; ++q) {
+      o[q * plane + slot] = key_word(lo, hi, q);
+    }
+  }
+  for (int s = min(total, out.k_slots) + part; s < out.k_slots;
+       s += ROW_THREADS) {
+    for (int q = 0; q < out.out_words; ++q) o[q * plane + s] = SENT;
+  }
+  if (part == 0) out.rowcnt[y * out.rows + row] = total;
+}
+
+bool args_ok(int ys, int64_t rows, int window) {
+  return ys > 0 && ys <= 65535 && rows > 0 && window >= 1 && window <= 64;
+}
+
+// The filter of the wrapper's (scale, magic, l); its scale is 0 (which
+// the launches refuse) unless scale >= 1 and l = ceil(log2 scale).
+Filter make_filter(int scale, uint64_t magic, int l) {
+  const bool ok = scale >= 1 && l >= 0 && l <= 31 &&
+                  (1ll << l) >= scale && (l == 0 || (1ll << (l - 1)) < scale);
+  return {magic, ok ? static_cast<uint32_t>(scale) : 0u, l > 0 ? 1 : 0,
+          l > 0 ? l - 1 : 0};
+}
+
+// K1 and K11's launch: one block per 128-window row.
+template <class Seeds, class Out>
+int launch_rows(const void* packed, int64_t packed_words,
+                const RunPlane& runs, int ys, int64_t rows, int window,
+                Seeds seeds, const Filter& filt, int legacy, Out out,
+                void* stream) {
   const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(ys));
-  extract_kernel<Runs, Seeds, Out><<<grid, LANES, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  extract_kernel<Seeds, Out><<<grid, LANES, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(packed), packed_words, runs, window, seeds,
-      static_cast<uint32_t>(scale), legacy != 0, out);
+      filt, legacy != 0, out);
+  return last_error();
+}
+
+// K7's launch: 64 rows a block.
+template <class Seeds>
+int launch_rows(const void* packed, int64_t packed_words,
+                const RunBounds& runs, int ys, int64_t rows, int window,
+                Seeds seeds, const Filter& filt, int legacy, CompactRows out,
+                void* stream) {
+  const int64_t blocks =
+      (rows * ROW_THREADS + SLIDE_THREADS - 1) / SLIDE_THREADS;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(ys));
+  slide_kernel<Seeds><<<grid, SLIDE_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), packed_words, runs, window, seeds,
+      filt, legacy != 0, out);
   return last_error();
 }
 
@@ -317,9 +548,10 @@ template <class Runs>
 int launch_compact(const void* packed, int64_t packed_words, Runs runs,
                    int g, int64_t rows, int window, uint64_t mask_lo,
                    uint64_t mask_hi, uint64_t salt, const void* seeds,
-                   int scale, int legacy, int k_slots, int out_words,
+                   const Filter& filt, int legacy, int k_slots, int out_words,
                    void* out, void* rowcnt, void* stream) {
-  if (k_slots < 1 || k_slots > LANES || out_words < 1 || out_words > 4) {
+  if (!args_ok(g, rows, window) || filt.scale == 0 || k_slots < 1 ||
+      k_slots > LANES || out_words < 1 || out_words > 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const CompactRows o{static_cast<uint32_t*>(out),
@@ -327,16 +559,20 @@ int launch_compact(const void* packed, int64_t packed_words, Runs runs,
                       out_words};
   if (seeds != nullptr) {
     const SeedRows sr{static_cast<const uint64_t*>(seeds)};
-    return launch(packed, packed_words, runs, g, rows, window, sr, scale,
-                  legacy, o, stream);
+    return launch_rows(packed, packed_words, runs, g, rows, window, sr, filt,
+                       legacy, o, stream);
   }
   const OneSeed one{{mask_lo, mask_hi, salt}};
-  return launch(packed, packed_words, runs, g, rows, window, one, scale,
-                legacy, o, stream);
+  return launch_rows(packed, packed_words, runs, g, rows, window, one, filt,
+                     legacy, o, stream);
 }
 
 }  // namespace
 }  // namespace sks
+
+// The filter arguments of every entry: scale >= 1 with fmh_magic (the
+// reciprocal of sks::Filter) and fmh_shift = ceil(log2 scale), both from
+// ops/cuda/extract.fmh_divisor(scale).
 
 // K1.  packed (G, packed_words) u32; rid (G, n) i32 with
 // 16 * packed_words >= n; out (out_words, G, rows * k_slots) u32;
@@ -347,13 +583,15 @@ int launch_compact(const void* packed, int64_t packed_words, Runs runs,
 extern "C" int sks_extract_compact(
     const void* packed, int64_t packed_words, const void* rid, int64_t n,
     int g, int64_t rows, int window, uint64_t mask_lo, uint64_t mask_hi,
-    uint64_t salt, const void* seeds, int scale, int legacy, int k_slots,
-    int out_words, void* out, void* rowcnt, void* stream) {
+    uint64_t salt, const void* seeds, int scale, uint64_t fmh_magic,
+    int fmh_shift, int legacy, int k_slots, int out_words, void* out,
+    void* rowcnt, void* stream) {
   if (16 * packed_words < n) return static_cast<int>(cudaErrorInvalidValue);
   const sks::RunPlane runs{static_cast<const int32_t*>(rid), n};
   return sks::launch_compact(packed, packed_words, runs, g, rows, window,
-                             mask_lo, mask_hi, salt, seeds, scale, legacy,
-                             k_slots, out_words, out, rowcnt, stream);
+                             mask_lo, mask_hi, salt, seeds,
+                             sks::make_filter(scale, fmh_magic, fmh_shift),
+                             legacy, k_slots, out_words, out, rowcnt, stream);
 }
 
 // K7.  packed (G, packed_words) u32; bounds (G, k_bounds) i32, each row
@@ -363,16 +601,18 @@ extern "C" int sks_extract_compact_raw(
     const void* packed, int64_t packed_words, const void* bounds,
     int k_bounds, const void* rid0, const void* vlen, int g, int64_t rows,
     int window, uint64_t mask_lo, uint64_t mask_hi, uint64_t salt,
-    const void* seeds, int scale, int legacy, int k_slots, int out_words,
-    void* out, void* rowcnt, void* stream) {
+    const void* seeds, int scale, uint64_t fmh_magic, int fmh_shift,
+    int legacy, int k_slots, int out_words, void* out, void* rowcnt,
+    void* stream) {
   if (k_bounds < 0) return static_cast<int>(cudaErrorInvalidValue);
   const sks::RunBounds runs{static_cast<const int32_t*>(bounds), k_bounds,
                             static_cast<const int32_t*>(rid0),
                             static_cast<const int32_t*>(vlen),
                             16 * packed_words};
   return sks::launch_compact(packed, packed_words, runs, g, rows, window,
-                             mask_lo, mask_hi, salt, seeds, scale, legacy,
-                             k_slots, out_words, out, rowcnt, stream);
+                             mask_lo, mask_hi, salt, seeds,
+                             sks::make_filter(scale, fmh_magic, fmh_shift),
+                             legacy, k_slots, out_words, out, rowcnt, stream);
 }
 
 // K11.  packed (G, packed_words) u32 and rid (G, n) i32 as K1's; canon
@@ -380,16 +620,18 @@ extern "C" int sks_extract_compact_raw(
 extern "C" int sks_extract_filter(
     const void* packed, int64_t packed_words, const void* rid, int64_t n,
     int g, int64_t nw, int window, uint64_t mask_lo, uint64_t mask_hi,
-    uint64_t salt, int scale, int legacy, void* canon, void* keep,
-    void* stream) {
-  if (16 * packed_words < n || nw < 1 || nw > n) {
+    uint64_t salt, int scale, uint64_t fmh_magic, int fmh_shift, int legacy,
+    void* canon, void* keep, void* stream) {
+  const sks::Filter filt = sks::make_filter(scale, fmh_magic, fmh_shift);
+  const int64_t rows = (nw + sks::LANES - 1) / sks::LANES;
+  if (16 * packed_words < n || nw < 1 || nw > n || filt.scale == 0 ||
+      !sks::args_ok(g, rows, window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const sks::RunPlane runs{static_cast<const int32_t*>(rid), n};
   const sks::OneSeed one{{mask_lo, mask_hi, salt}};
   const sks::EmitAll out{static_cast<uint32_t*>(canon),
                          static_cast<uint8_t*>(keep), nw};
-  const int64_t rows = (nw + sks::LANES - 1) / sks::LANES;
-  return sks::launch(packed, packed_words, runs, g, rows, window, one, scale,
-                     legacy, out, stream);
+  return sks::launch_rows(packed, packed_words, runs, g, rows, window, one,
+                          filt, legacy, out, stream);
 }

@@ -65,7 +65,7 @@ KERNELS = {
     "K3": Kernel("compact_global", "spaced_kmer_sketching_tpu_torch/csrc/"
                  "compact.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                  "compact.py:108"),
-    "K4": Kernel("bitonic_sort", "spaced_kmer_sketching_tpu_torch/csrc/"
+    "K4": Kernel("sort_rows", "spaced_kmer_sketching_tpu_torch/csrc/"
                  "sort.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                  "sort.py:110"),
     "K5": Kernel("merge_sorted_runs", "spaced_kmer_sketching_tpu_torch/csrc/"
@@ -166,13 +166,15 @@ def _declare(lib) -> None:
     p, i, i64, u64 = c.c_void_p, c.c_int, c.c_int64, c.c_uint64
     lib.sks_extract_compact.restype = i
     lib.sks_extract_compact.argtypes = [
-        p, i64, p, i64, i, i64, i, u64, u64, u64, p, i, i, i, i, p, p, p]
+        p, i64, p, i64, i, i64, i, u64, u64, u64, p, i, u64, i, i, i, i, p, p,
+        p]
     lib.sks_extract_compact_raw.restype = i
     lib.sks_extract_compact_raw.argtypes = [
-        p, i64, p, i, p, p, i, i64, i, u64, u64, u64, p, i, i, i, i, p, p, p]
+        p, i64, p, i, p, p, i, i64, i, u64, u64, u64, p, i, u64, i, i, i, i, p,
+        p, p]
     lib.sks_extract_filter.restype = i
     lib.sks_extract_filter.argtypes = [
-        p, i64, p, i64, i, i64, i, u64, u64, u64, i, i, p, p, p]
+        p, i64, p, i64, i, i64, i, u64, u64, u64, i, u64, i, i, p, p, p]
     lib.sks_compact_rows.restype = i
     lib.sks_compact_rows.argtypes = [p, i, i64, i, p, p, p]
     lib.sks_compact_global.restype = i
@@ -180,13 +182,13 @@ def _declare(lib) -> None:
     lib.sks_compact_global_scratch.restype = i64
     lib.sks_compact_global_scratch.argtypes = [i, i64]
     lib.sks_sort_rows.restype = i
-    lib.sks_sort_rows.argtypes = [p, p, i, i, i64, p]
+    lib.sks_sort_rows.argtypes = [p, p, p, i, i, i64, p]
     lib.sks_merge_runs.restype = i
     lib.sks_merge_runs.argtypes = [p, p, p, i, i64, i64, i64, p]
     lib.sks_sort_runs.restype = i
     lib.sks_sort_runs.argtypes = [p, p, i, i, i64, i64, p]
     lib.sks_sort_truncate.restype = i
-    lib.sks_sort_truncate.argtypes = [p, p, p, p, i, i, i64, i64, p]
+    lib.sks_sort_truncate.argtypes = [p, p, p, p, p, i, i, i64, i64, p]
     lib.sks_merge_pair.restype = i
     lib.sks_merge_pair.argtypes = [p, p, p, i, i64, i, p]
     lib.sks_gram_tiles.restype = i

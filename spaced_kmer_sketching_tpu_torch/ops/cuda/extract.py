@@ -87,6 +87,19 @@ def pack_codes(codes: torch.Tensor) -> torch.Tensor:
     return u64ops.as_i32((c.reshape(g, -1, 16) << shifts).sum(-1))
 
 
+def fmh_divisor(scale: int) -> Tuple[int, int]:
+    """(magic, l): the round-up reciprocal of `scale` (Granlund and
+    Montgomery 1994, figure 4.1) that the kernels' filter takes in place of
+    a division.  l = ceil(log2 scale) and magic = floor(2^64 (2^l - scale)
+    / scale) + 1 < 2^64; then for every 64-bit h, with t the high word of
+    magic * h, floor(h / scale) = (t + ((h - t) >> min(l, 1))) >> max(l -
+    1, 0), so h % scale is h less that times scale.  scale in 1..2^31 - 1."""
+    if not 1 <= scale < 2 ** 31:
+        raise ValueError(f"scale must lie in [1, 2^31), got {scale}")
+    l = (scale - 1).bit_length()
+    return (2 ** 64 * (2 ** l - scale)) // scale + 1, l
+
+
 def _seed_rows(mask_words, salt) -> Optional[np.ndarray]:
     """None for one seed (mask_words 4 ints, salt an int); for S seeds
     (mask_words (S, 4), salt S ints) the (S, 3) uint64 rows [mask_lo,
@@ -173,8 +186,9 @@ def extract_compact(packed: torch.Tensor, run_id: torch.Tensor,
     m_lo, m_hi, sv, seeds, _keep = _seed_args(rows_s, mask_words, salt, dev)
     err = build.lib().sks_extract_compact(
         packed.data_ptr(), pw, run_id.data_ptr(), n, y, rows, window,
-        m_lo, m_hi, sv, seeds, scale, int(variant == "legacy"), k_slots,
-        out_words, out.data_ptr(), rowcnt.data_ptr(), build.stream_ptr(dev))
+        m_lo, m_hi, sv, seeds, scale, *fmh_divisor(scale),
+        int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
+        rowcnt.data_ptr(), build.stream_ptr(dev))
     build.check(err, "sks_extract_compact")
     K1.launches += 1
     return out, rowcnt
@@ -280,8 +294,9 @@ def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
     err = build.lib().sks_extract_compact_raw(
         packed.data_ptr(), pw, bounds.data_ptr(), bounds.shape[1],
         rid0.data_ptr(), vlen.data_ptr(), y, rows, window, m_lo, m_hi, sv,
-        seeds, scale, int(variant == "legacy"), k_slots, out_words,
-        out.data_ptr(), rowcnt.data_ptr(), build.stream_ptr(dev))
+        seeds, scale, *fmh_divisor(scale), int(variant == "legacy"),
+        k_slots, out_words, out.data_ptr(), rowcnt.data_ptr(),
+        build.stream_ptr(dev))
     build.check(err, "sks_extract_compact_raw")
     K7.launches += 1
     return out, rowcnt
@@ -336,8 +351,8 @@ def extract_filter(codes: torch.Tensor, run_id: torch.Tensor,
     err = build.lib().sks_extract_filter(
         packed.data_ptr(), packed.shape[1], run_id.data_ptr(), n, g, nw,
         window, m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
-        int(variant == "legacy"), canon.data_ptr(), keep.data_ptr(),
-        build.stream_ptr(dev))
+        *fmh_divisor(scale), int(variant == "legacy"), canon.data_ptr(),
+        keep.data_ptr(), build.stream_ptr(dev))
     build.check(err, "sks_extract_filter")
     K11.launches += 1
     return canon, keep

@@ -4,10 +4,15 @@ multi-word keys (csrc/sort.cu).
 K4 sorts each genome row of stacked planes (kw, G, N) int32 holding u32
 words, word kw-1 most significant, N a power of two >= 1024; all-ones
 sentinels sort last.  The JAX entry is bitonic_sort_128 on (N, W) keys,
-batched by the finish's vmap.  K8 (sort_runs_128) sorts each row's runs
-with alternating directions, K9 (sort_truncate_128) keeps each 32,768-key
-tile's share of a capacity and merges them (with K5's merge); both serve
-the finish fallbacks of ops/sketch.py, batched over the rows as K4 is.
+batched by the finish's vmap.  K4 sorts tiles of 16,384 keys (kw <= 2) or
+8,192 (kw 3-4), a quarter of that when a few rows would leave most SMs
+idle, in one launch, 16 or 8 keys a thread in registers merged by merge
+path in shared memory, and merges longer rows with K5's levels, one
+launch a level, through a scratch tensor allocated here.  K8
+(sort_runs_128) sorts each row's runs with alternating directions, K9
+(sort_truncate_128) keeps each 32,768-key tile's share of a capacity and
+merges them (with K5's merge); both serve the finish fallbacks of
+ops/sketch.py, batched over the rows as K4 is.
 
 K5 (merge_sorted_runs) and K10 (merge_pair_streams) merge ascending packed
 (key, gid) streams of pw <= 5 planes, laid out as the JAX package's lists
@@ -35,6 +40,7 @@ K8 = build.KERNELS["K8"]
 K9 = build.KERNELS["K9"]
 K10 = build.KERNELS["K10"]
 TILE = 32768                 # K9's tile (the JAX sort.TILE_ELEMS)
+MIN_SORT_TILE = 2048         # K4's smallest register tile (kw 3-4)
 
 
 def sort_rows(planes: torch.Tensor) -> torch.Tensor:
@@ -52,8 +58,11 @@ def sort_rows(planes: torch.Tensor) -> torch.Tensor:
     build.require(planes, "planes", torch.int32, 3, dev)
     kw, g, _ = planes.shape
     out = torch.empty_like(planes)
-    err = build.lib().sks_sort_rows(planes.data_ptr(), out.data_ptr(), kw, g,
-                                    n, build.stream_ptr(dev))
+    scratch = torch.empty_like(planes) if n > MIN_SORT_TILE else None
+    err = build.lib().sks_sort_rows(
+        planes.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), kw, g, n,
+        build.stream_ptr(dev))
     build.check(err, "sks_sort_rows")
     K4.launches += 1
     return out
@@ -249,12 +258,14 @@ def sort_truncate(planes: torch.Tensor, capacity: int) -> torch.Tensor:
         return sort_truncate_plain(planes, capacity)
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
+    sorted_tiles = torch.empty_like(planes)
     scratch = torch.empty_like(planes)
     cut = torch.empty((kw, g, capacity), dtype=torch.int32, device=dev)
     out = torch.empty_like(cut)
     err = build.lib().sks_sort_truncate(
-        planes.data_ptr(), scratch.data_ptr(), cut.data_ptr(),
-        out.data_ptr(), kw, g, m, capacity, build.stream_ptr(dev))
+        planes.data_ptr(), sorted_tiles.data_ptr(), scratch.data_ptr(),
+        cut.data_ptr(), out.data_ptr(), kw, g, m, capacity,
+        build.stream_ptr(dev))
     build.check(err, "sks_sort_truncate")
     K9.launches += 1
     return out

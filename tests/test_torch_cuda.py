@@ -129,12 +129,17 @@ def test_k3_property(dev, kw, g, n, frac, seed):
 
 
 @pytest.mark.parametrize("kw", [1, 2, 3, 4])
-@pytest.mark.parametrize("n", [1024, 65536])
+@pytest.mark.parametrize("n", [1024, 2048, 8192, 16384, 65536, 1 << 20])
 def test_k4_matches_plain(dev, n, kw):
-    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, 2, n), dtype=torch.int32,
+    """Register tiles (one launch for n up to the tile), K5's levels above
+    it; rows with duplicates and a sentinel tail, all sentinels, and all
+    equal."""
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, 4, n), dtype=torch.int32,
                       device=dev)
     z[:, :, ::3] = z[:, :, 1:2]
     z[:, :, -100:] = -1
+    z[:, 2] = -1
+    z[:, 3] = z[:, 3, :1]
     assert torch.equal(sort.sort_rows(z), sort.sort_rows_plain(z))
 
 
@@ -455,41 +460,89 @@ def test_routed_all_pairs_match_native_merge(dev):
     check(out, list(range(0, 150, 7)) + [127, 128, 149])
 
 
-def raw_batch(rng, g, n, k, real, rid0, short):
+def raw_batch(rng, g, n, k, real, rid0, short, edges=False):
     """K7 inputs: packed bodies of random codes, `real` sorted run starts
-    per genome (the rest padded with the body length), rid0, and code
-    counts `short` below n."""
+    per genome (the rest padded with the body length; with `edges`, on
+    multiples of 32 and of 31, a K7 thread's first and last windows), rid0,
+    and code counts `short` below n."""
     body = extract.packed_body(n)
     p = rng.integers(-2 ** 31, 2 ** 31, (g, body // 16), dtype=np.int64)
     bounds = np.full((g, k), body, np.int32)
     for i in range(g):
-        bounds[i, :real] = np.sort(rng.choice(n - short, real,
-                                              replace=False))
+        if edges:
+            at = np.unique(np.concatenate([np.arange(1, real) * 32 * 7,
+                                           np.arange(1, real) * 31 * 5]))
+            bounds[i, :real] = at[:real]
+        else:
+            bounds[i, :real] = np.sort(rng.choice(n - max(short, 0), real,
+                                                  replace=False))
     return (torch.from_numpy(p.astype(np.int32)), torch.from_numpy(bounds),
             torch.full((g,), rid0, dtype=torch.int32),
             torch.full((g,), n - short, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("g,n,k,real,rid0,short,window,variant", [
-    (1, 1 << 25, 64, 5, 7, 1000, 20, "modern"),     # a streaming segment
-    (32, 1 << 21, 8, 3, 0, 1000, 20, "legacy"),     # a pipeline dispatch
-    (4, 1 << 20, 512, 512, 2, 1000, 33, "modern"),  # no limit on K
-    (2, 1 << 16, 8, 8, 0, -3000, 64, "modern")])    # vlen past the body
-def test_k7_matches_plain(dev, g, n, k, real, rid0, short, window, variant):
+@pytest.mark.parametrize(
+    "g,n,k,real,rid0,short,window,variant,scale,edges", [
+        (1, 1 << 25, 64, 5, 7, 1000, 20, "modern", 200, False),  # a segment
+        (32, 1 << 21, 8, 3, 0, 1000, 20, "legacy", 200, False),  # a dispatch
+        (4, 1 << 20, 512, 512, 2, 1000, 33, "modern", 200, False),  # any K
+        (2, 1 << 16, 8, 8, 0, -3000, 64, "modern", 200, False),  # vlen past
+        (2, 1 << 16, 16, 16, -1, 100, 1, "modern", 1, True),   # every kept
+        (2, 1 << 17, 12, 12, 0, 500, 16, "legacy", 7, True),
+        (3, 1 << 16, 8, 8, -1, 50, 17, "modern", 7, True),
+        (2, 1 << 18, 32, 32, 1, 300, 32, "modern", 1, False),
+        (2, 1 << 16, 0, 0, 0, 0, 64, "legacy", 1, False),      # K = 0
+        (2, 1 << 22, 40, 40, -1, 300, 32, "modern", 2 ** 31 - 1, True)])
+def test_k7_matches_plain(dev, g, n, k, real, rid0, short, window, variant,
+                          scale, edges):
     rng = np.random.default_rng(n + k)
     p, b, r0, vl = (x.to(dev) for x in raw_batch(rng, g, n, k, real, rid0,
-                                                 short))
-    mask = spaced_seed_mask(window, 16, 0)
+                                                 short, edges))
+    mask = spaced_seed_mask(window, min(16, window), 0)
     salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
     nw = n - window + 1
-    args = dict(window=window, nw=nw, scale=200, variant=variant,
-                k_slots=_k_slots_for(nw, 200, 65536),
+    # scale 1 keeps every valid window: 8 slots make every row overflow
+    args = dict(window=window, nw=nw, scale=scale, variant=variant,
+                k_slots=8 if scale == 1 else _k_slots_for(nw, scale, 65536),
                 out_words=finish_words(window))
     build.reset_launches()
     got = extract.extract_compact_raw(p, b, r0, vl, mask.words_u32, salt,
                                       **args)
     want = extract.extract_compact_raw_plain(p, b, r0, vl, mask.words_u32,
                                              salt, **args)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K7"].launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if scale < 2 ** 20:               # 2^31 - 1 keeps next to nothing
+        assert int(got[1].sum()) > 0
+
+
+def test_k7_seed_mode_at_config3_shape(dev):
+    """K7's seed-batch mode as sketch_packed_multiseed sends it (8 seeds
+    over one compact upload of 2^23 codes in two records) against its
+    plain version."""
+    rng = np.random.default_rng(23)
+    n, length, window = 1 << 23, 5_000_000, 20
+    body = extract.packed_body(n)
+    codes = rng.integers(0, 4, length).astype(np.uint8)
+    p = torch.from_numpy(extract.pack2bit(codes, body // 16).view(np.int32)
+                         [None]).to(dev)
+    bounds = torch.tensor([[length // 2, body]], dtype=torch.int32,
+                          device=dev)
+    rid0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    vlen = torch.full((1,), length, dtype=torch.int32, device=dev)
+    masks = [spaced_seed_mask(window, 16, s) for s in range(8)]
+    salts = [boosthash.fmh_salt(m.lo, m.hi, window, 1, "modern")
+             for m in masks]
+    mw = np.stack([m.words_u32 for m in masks])
+    nw = n - window + 1
+    args = dict(window=window, nw=nw, scale=200, variant="modern",
+                k_slots=_k_slots_for(nw, 200, 65536), out_words=2)
+    build.reset_launches()
+    got = extract.extract_compact_raw(p, bounds, rid0, vlen, mw, salts,
+                                      **args)
+    want = extract.extract_compact_raw_plain(p, bounds, rid0, vlen, mw,
+                                             salts, **args)
     torch.cuda.synchronize()
     assert build.KERNELS["K7"].launches == 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
