@@ -80,9 +80,11 @@ kernel must have been launched by the path that uses it, and K7 by phases
 K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
 every pw instance, from cuobjdump -sass).
 
-The extract kernels' compiled code must hold no CALL (the 64-bit division
-routine: the filter is a multiply-high), and the build's -Xptxas=-v
-registers and spills of K7's and K4's kernels are printed.
+The extract kernels' compiled code (the five instances of slide_kernel:
+K1, K7 and K11, K1's and K7's seed-batch modes) must hold no CALL (the
+64-bit division routine: the filter is a multiply-high), and the build's
+-Xptxas=-v registers and spills of those instances and of K4's kernels
+are printed.
 
 Output: the card's name and power limit, a JSON line of per-kernel results
 ({"kernels": [...]}: launches on the paths, max_abs_err, kernel, plain and
@@ -91,12 +93,14 @@ K1, K7 and K11, the instructions a window cannot skip at its timed shape
 (the slide, the select, the hash and the filter, counted from probes'
 compiled code with cuobjdump), for K6 its int8 tensor operations on the
 runs it keeps; for K4, K5, K9 and K10 also the device launches of one
-call, from torch.profiler; K4 its device time by kernel, its grids and
-its time at kw 1-4; K7 its seed-batch launch; K6 at both its timed
-shapes, K3 with the grids the profiler recorded), a line of the profiled
-sums of K4, K7, K5, K10, K6 and K3 over phases 6, 7 and 8(b) with K3's
-bytes on those paths and K4's launches by grid in 8(b), and as the LAST
-line
+call, from torch.profiler; K1, K2, K3, K6 and K11 their device time
+from torch.profiler beside the CUDA-event time, which also holds the
+wrapper's host time; K4 its device time by kernel, its grids and its
+time at kw 1-4; K7 its seed-batch launch; K6 at both its timed shapes,
+K3 with the grids the profiler recorded), a line of the profiled sums of
+K4, K7, K2, K5, K10, K6 and K3 over phases 6, 7 and 8(b) with the bytes
+of K2 and K3 on those paths and K4's launches by grid in 8(b), and as
+the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -139,9 +143,9 @@ LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
 # their SASS (extract_op_counts).
 # The kernels of the profiled paths, by the names the profiler shows: K4's,
 # K5's and K10's in csrc/sort.cu, K7's in csrc/extract.cu, K6's in
-# csrc/gram_tiles.cu, K3's three in csrc/compact.cu.
+# csrc/gram_tiles.cu, K2's and K3's three in csrc/compact.cu.
 PATH_KERNELS = {"K4": ("reg_tile_sort_kernel", "sort_level_kernel"),
-                "K7": ("slide_kernel",),
+                "K7": ("slide_kernel",), "K2": ("compact_rows_kernel",),
                 "K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
                 "K10": ("merge_pair_kernel",), "K6": ("gram_mma_kernel",),
                 "K3": ("compact_count_kernel", "compact_offset_kernel",
@@ -303,32 +307,43 @@ def kernel_grids(fn, names) -> dict:
 
 def profile_path(what: str, fn, grid_names=()) -> dict:
     """A second, profiled run of a path after its timed one: prints the
-    summed device time and launches of the kernels of K4, K7, K5, K10, K6
-    and K3 and of every kernel of the port, K3's bytes on the path (each
-    compact_global call's planes read once and written once, their time at
-    the HBM rate, and that bound's share of K3's profiled sum) and, for
-    the kernels in grid_names, how many launches had each grid."""
+    summed device time and launches of the kernels of K4, K7, K2, K5, K10,
+    K6 and K3 and of every kernel of the port, the bytes of K2 and K3 on
+    the path (each compact_rows and compact_global call's input read once
+    and its outputs written once, counted call by call, their time at the
+    HBM rate, and that bound's share of the kernel's profiled sum) and,
+    for the kernels in grid_names, how many launches had each grid."""
     from spaced_kmer_sketching_tpu_torch.ops import sketch as sketch_ops
-    k3 = {"calls": 0, "bytes": 0}
-    orig = sketch_ops.compact_global
+    moved = {"K2": {"calls": 0, "bytes": 0}, "K3": {"calls": 0, "bytes": 0}}
+    orig_rows, orig_global = sketch_ops.compact_rows, sketch_ops.compact_global
 
-    def counting(planes):
-        k3["calls"] += 1
-        k3["bytes"] += 2 * nbytes(planes)
-        return orig(planes)
-    sketch_ops.compact_global = counting
+    def counting_rows(planes, k_out, **kw):
+        out = orig_rows(planes, k_out, **kw)
+        moved["K2"]["calls"] += 1
+        moved["K2"]["bytes"] += nbytes(planes, *(t for t in out
+                                                 if t is not None))
+        return out
+
+    def counting_global(planes):
+        moved["K3"]["calls"] += 1
+        moved["K3"]["bytes"] += 2 * nbytes(planes)
+        return orig_global(planes)
+    sketch_ops.compact_rows = counting_rows
+    sketch_ops.compact_global = counting_global
     t0 = time.perf_counter()
     try:
         prof = _profiled(fn)
     finally:
-        sketch_ops.compact_global = orig
+        sketch_ops.compact_rows = orig_rows
+        sketch_ops.compact_global = orig_global
     wall = time.perf_counter() - t0
     kernels = _kernel_sums(prof)
     sums = {key: [sum(kernels.get(n, [0.0, 0])[i] for n in names)
                   for i in (0, 1)] for key, names in PATH_KERNELS.items()}
-    k3["bound_ms"] = k3["bytes"] / HBM_BYTES_PER_S * 1e3
-    k3["share_of_bound"] = (k3["bound_ms"] / sums["K3"][0]
-                            if sums["K3"][0] else None)
+    for key, m in moved.items():
+        m["bound_ms"] = m["bytes"] / HBM_BYTES_PER_S * 1e3
+        m["share_of_bound"] = (m["bound_ms"] / sums[key][0]
+                               if sums[key][0] else None)
     grids = {}
     for name, gs in _trace_grids(prof, grid_names).items():
         for grid in gs:
@@ -338,11 +353,13 @@ def profile_path(what: str, fn, grid_names=()) -> dict:
     print(f"{what} profile ({wall:.3f} s wall, profiled): "
           + ", ".join(f"{k} {v[0]:.3f} ms device over {v[1]} launches"
                       for k, v in sums.items())
-          + f"; K3 bytes {json.dumps(k3)}; every kernel [ms, launches] "
+          + f"; K2 bytes {json.dumps(moved['K2'])}; K3 bytes "
+          + json.dumps(moved["K3"]) + "; every kernel [ms, launches] "
           + json.dumps({k: [round(v[0], 3), v[1]]
                         for k, v in sorted(kernels.items())})
           + (f"; launches by grid {json.dumps(grids)}" if grids else ""))
-    sums["K3 bytes"] = k3
+    sums["K2 bytes"] = moved["K2"]
+    sums["K3 bytes"] = moved["K3"]
     if grids:
         sums["grids"] = grids
     return sums
@@ -445,11 +462,10 @@ def extract_op_counts(build_dir: pathlib.Path) -> dict:
     every window slides both strands by one code; a valid one of K1 and K7
     also masks and compares them (the select) and hashes and filters the
     key.  K11 computes the key at every window, so every window pays the
-    slide and the select and a valid one the hash and the filter.  Neither
-    a per-window run search nor a per-window strand rebuild is charged: K7
-    searches once a thread and slides, and K1 and K11, which rebuild both
-    strands at every window, are charged the same work, so their bound says
-    how far their one-thread-per-window body is from the sliding one."""
+    slide and the select and a valid one the hash and the filter.  No run
+    search or plane read, no strand rebuild, no row ranking and no store
+    is charged: the three kernels share one sliding body, and the bound
+    says how far that body is from the work itself."""
     from spaced_kmer_sketching_tpu_torch.ops.cuda import build
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         src = pathlib.Path(tmp) / "probes.cu"
@@ -468,34 +484,53 @@ def extract_op_counts(build_dir: pathlib.Path) -> dict:
             "sass": c}
 
 
+def extract_instance(name: str):
+    """Which extract launch a compiled slide_kernel instance serves, from
+    its mangled name: K1 (run-id plane, compacted rows), K7 (run bounds)
+    or K11 (every window), " seeds" added for seed-batch mode; None for
+    any other kernel."""
+    if "slide_kernel" not in name:
+        return None
+    key = ("K11" if "EmitAll" in name else "K7" if "RunBounds" in name
+           else "K1")
+    return key + (" seeds" if "SeedRows" in name else "")
+
+
+EXTRACT_INSTANCES = ("K1", "K1 seeds", "K7", "K7 seeds", "K11")
+
+
 def no_division_calls(so: pathlib.Path) -> dict:
-    """The extract kernels' compiled code (K1's and K11's extract_kernel,
-    K7's slide_kernel, every instance): fails if any holds a CALL, which
-    is how a 64-bit division or remainder compiles (nvcc's subroutine).
-    Returns each kernel's instance count and instructions."""
-    found = {n: ops for n, ops in sass_opcodes(so).items()
-             if "extract_kernel" in n or "slide_kernel" in n}
+    """The extract kernels' compiled code (the five slide_kernel instances
+    of K1, K7 and K11): fails if any holds a CALL, which is how a 64-bit
+    division or remainder compiles (nvcc's subroutine), or if an instance
+    is missing.  Returns each instance's instruction count."""
+    found = {extract_instance(n): ops for n, ops in sass_opcodes(so).items()
+             if extract_instance(n)}
     calls = {n: [op for op in ops if op.startswith("CALL")]
              for n, ops in found.items()}
-    need(found and not any(calls.values()),
+    need(sorted(found) == sorted(EXTRACT_INSTANCES),
+         f"extract instances in the SASS: {sorted(found)}")
+    need(not any(calls.values()),
          f"extract kernels with CALLs (a division routine?): {calls}")
-    out = {}
-    for n, ops in found.items():
-        key = "slide_kernel" if "slide_kernel" in n else "extract_kernel"
-        acc = out.setdefault(key, [0, 0])
-        acc[0] += 1
-        acc[1] += len(ops)
-    return out
+    return {n: len(ops) for n, ops in sorted(found.items())}
 
 
-def ptxas_usage(so: pathlib.Path, names) -> dict:
-    """Registers and spill bytes of each instance of the named kernels,
-    from the build's -Xptxas=-v log beside the library."""
+def kernel_label(name: str):
+    """ptxas_usage's label of a kernel: its extract instance, K4's two
+    kernels by name, else None."""
+    return extract_instance(name) or next(
+        (k for k in ("reg_tile_sort_kernel", "sort_level_kernel")
+         if k in name), None)
+
+
+def ptxas_usage(so: pathlib.Path, label=kernel_label) -> dict:
+    """Registers and spill bytes of each kernel instance that `label`
+    names, from the build's -Xptxas=-v log beside the library."""
     usage, name = {}, None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in names if k in m.group(1)), None)
+            name = label(m.group(1))
             if name is not None:
                 usage.setdefault(name, []).append({})
             continue
@@ -596,7 +631,9 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
               f"planes={tuple(got[0].shape)} kept={int(got[1].sum())} "
               f"max_abs_err={max_abs_err(got, want)}")
         if kw == 2:
-            res["K1"] = dict(ms=timer(kern, 20), plain_ms=timer(plain, 3))
+            res["K1"] = dict(ms=timer(kern, 20),
+                             device_ms=device_ms(kern, 20),
+                             plain_ms=timer(plain, 3))
             res["K1"].update(bound(
                 nbytes(packed, run_id, *got),
                 extract_ops(g * got[1].shape[1] * 128,
@@ -621,6 +658,8 @@ def phase_kernels(dev, rng, timer, ops, n=8388608, length=5_000_000):
         if si == 0:
             res["K2"] = dict(
                 ms=timer(lambda: compact.compact_rows(x, k_out), 20),
+                device_ms=device_ms(lambda: compact.compact_rows(x, k_out),
+                                    20),
                 plain_ms=timer(lambda: compact.compact_rows_plain(x, k_out),
                                  5),
                 **bound(nbytes(x) * (1 + k_out / 128)))
@@ -835,7 +874,8 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
     seed_ops = extract_ops(len(salts) * got[1].shape[1] * 128,
                            len(salts) * valid, ops["K1"])
     res["K1 seeds"] = dict(
-        max_abs_err=err, ms=timer(seeds, 10), singles_ms=timer(singles, 5),
+        max_abs_err=err, ms=timer(seeds, 10), device_ms=device_ms(seeds, 10),
+        singles_ms=timer(singles, 5),
         plain_ms=timer(seeds_plain, 2),
         **bound(nbytes(packed, run_id, *got), seed_ops))
     print(f"K1 seed-batch mode: {len(salts)} seeds over one genome, n={n} "
@@ -864,7 +904,8 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
     got7 = seeds7()
     err = max(max_abs_err(got7, seeds7_plain()), max_abs_err(got7, got))
     res["K7 seeds"] = dict(
-        max_abs_err=err, ms=timer(seeds7, 10), plain_ms=timer(seeds7_plain, 2),
+        max_abs_err=err, ms=timer(seeds7, 10), device_ms=device_ms(seeds7, 10),
+        plain_ms=timer(seeds7_plain, 2),
         **bound(nbytes(p7, bounds, rid0, vlen, *got7), seed_ops))
     print(f"K7 seed-batch mode: the same {len(salts)} seeds over the compact "
           f"upload ({body // 16} words, bounds {bounds.tolist()}, vlen "
@@ -884,12 +925,14 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
     got = filt()
     err = max_abs_err(got, filt_plain())
     res["K11"] = dict(
-        max_abs_err=err, ms=timer(filt, 10), plain_ms=timer(filt_plain, 2),
+        max_abs_err=err, ms=timer(filt, 10), device_ms=device_ms(filt, 10),
+        plain_ms=timer(filt_plain, 2),
         pack_ms=timer(lambda: extract.pack_codes(c), 10),
         **bound(nbytes(c, run_id, *got), extract_ops(nw, valid, ops["K11"])))
     print(f"K11 n={n} canon={tuple(got[0].shape)} kept={int(got[1].sum())} "
           f"max_abs_err={err}; {res['K11']['ms']} ms a call, of which the "
-          f"device pack (pack_codes) {res['K11']['pack_ms']} ms")
+          f"device pack (pack_codes) {res['K11']['pack_ms']} ms; K11's "
+          f"kernel {res['K11']['device_ms']} ms device")
     del got
 
     def keys(shape):
@@ -1984,10 +2027,9 @@ def main(argv=None) -> int:
           f"(select, hash, filter), of K11 {ops['K11'][0]} + "
           f"{ops['K11'][1]} if valid ({time.perf_counter() - t0:.3f} s)")
     print(f"extract kernels' SASS holds no CALL (no division routine): "
-          f"{json.dumps(no_division_calls(so))} [instances, instructions]")
-    print(f"registers and spill bytes (-Xptxas=-v): " + json.dumps(
-        ptxas_usage(so, ("slide_kernel", "extract_kernel",
-                         "reg_tile_sort_kernel", "sort_level_kernel"))))
+          f"{json.dumps(no_division_calls(so))} [instructions]")
+    print(f"registers and spill bytes (-Xptxas=-v): "
+          + json.dumps(ptxas_usage(so)))
     k6_ops = k6_tensor_cores(so)
     print(f"K6 (gram_mma_kernel, pw 1-5) tensor-core instructions "
           f"(cuobjdump -sass): {json.dumps(k6_ops)}")
@@ -2075,15 +2117,20 @@ def main(argv=None) -> int:
                                tensor_core_sass=k6_ops)
         if key == "K3":
             kernels[-1].update(grid=r["grid"], device_ms=r["device_ms"])
+        if key in ("K1", "K2", "K11"):
+            kernels[-1].update(device_ms=r["device_ms"])
     seeds, seeds7 = kres["K1 seeds"], kres["K7 seeds"]
     print(f"K1 seed-batch mode ({CONFIG3_SEEDS} seeds, n = 2^23): "
-          f"{seeds['ms']} ms, {CONFIG3_SEEDS} single-seed launches "
+          f"{seeds['ms']} ms (device {seeds['device_ms']} ms), "
+          f"{CONFIG3_SEEDS} single-seed launches "
           f"{seeds['singles_ms']} ms, plain {seeds['plain_ms']} ms, bound "
           f"{seeds['bound_ms']} ms ({seeds['bound_by']}); K7 seed-batch mode "
-          f"(config 3's path) {seeds7['ms']} ms, plain {seeds7['plain_ms']} "
+          f"(config 3's path) {seeds7['ms']} ms (device "
+          f"{seeds7['device_ms']} ms), plain {seeds7['plain_ms']} "
           f"ms, bound {seeds7['bound_ms']} ms ({seeds7['bound_by']}); {smi}")
     print(json.dumps({"kernels": kernels}))
-    print(f"profiled paths ([device ms, launches]; K3's bytes): phase 6 "
+    print(f"profiled paths ([device ms, launches]; K2's and K3's bytes): "
+          f"phase 6 "
           f"(G = {BLOCKED_GENOMES}) {json.dumps(blk['profile'])}; phase 7 "
           f"(config 5) {json.dumps(cfg5['profile'])}; phase 8b "
           f"(G = {CONFIG4_GENOMES}) {json.dumps(cfg4b['profile'])}; {smi}")

@@ -1,6 +1,6 @@
 // K1, K7 and K11: fused spaced-seed extract + boost hash + FracMinHash
-// filter, one kernel template with two sources of run ids, two sources of
-// seeds and two outputs.
+// filter, one sliding kernel template with two sources of run ids, two
+// sources of seeds and two outputs.
 //
 // Replaces spaced_kmer_sketching_tpu/ops/pallas/extract.py::_compact_kernel
 // (K1: entry extract_compact_windows_prepacked, body _extract_block_packed,
@@ -18,7 +18,8 @@
 //   valid = rid(t) == rid(t+w-1) >= 0;
 //   keep  = valid and (boost_hash(key) ^ salt) % scale == 0.
 // The run ids come from one of two places:
-//   K1 (RunPlane):  an int32 plane, rid(t) = rid[g][t] for t < n, else -1;
+//   K1, K11 (RunPlane): an int32 plane, rid(t) = rid[g][t] for t < n, else
+//                   -1; any plane, not only one of ascending runs;
 //   K7 (RunBounds): the genome's sorted run starts bounds[g][0..K), rid0[g]
 //                   and vlen[g]: rid(t) = rid0 + #(bounds <= t) for
 //                   0 <= t < min(vlen, n), else -1, n = 16 * packed words.
@@ -46,43 +47,50 @@
 // 3.35 TB/s) against ~0.6e9 instructions that no design can skip (~18 us
 // at the card's limit of 132 SMs x 4 warp instructions a clock: 18 a
 // window for the slide, 90 a valid one for the select, the hash and the
-// filter, as chip_smoke.py counts them from the SASS of probes).  On an
-// H100 80GB HBM3 at 700 W, K7 takes 0.227-0.229 ms on a 2^25-window
-// streaming segment against that bound's 0.108 ms, where the one-thread-
-// per-window body took 0.639 ms, and 0.34-0.36 ms for 8 seeds over 2^23
-// codes, from 0.77-0.85 (PERF.md).  So every design here keeps the key
-// and the hash in registers, in native 64-bit arithmetic (the TPU kernel
-// emulated 64-bit on u32 lane pairs), and the filter divides by nothing:
-// (h ^ salt) % scale is a multiply-high by a reciprocal the wrapper
-// computes once per launch, a shift, a multiply and a subtract
-// (fmh_keep: Granlund and Montgomery's round-up method, exact for every
-// 64-bit h and every scale in 1..2^31 - 1).
+// filter, as chip_smoke.py counts them from the SASS of probes).  K11
+// writes 17 B a window, so bytes bound it (PERF.md).  So every design
+// here keeps the key and the hash in registers, in native 64-bit
+// arithmetic (the TPU kernel emulated 64-bit on u32 lane pairs), and the
+// filter divides by nothing: (h ^ salt) % scale is a multiply-high by a
+// reciprocal the wrapper computes once per launch, a shift, a multiply
+// and a subtract (fmh_keep: Granlund and Montgomery's round-up method,
+// exact for every 64-bit h and every scale in 1..2^31 - 1).
 //
-// K1 and K11 (extract_kernel) keep one thread per window: each builds its
-// window's 128 bits from five packed words and both strands from scratch.
-// K7 (slide_kernel) is a sliding multi-window kernel.  A thread takes
-// SLIDE_C = 32 consecutive windows from a word-aligned t0: it reads the
-// words its windows touch once (codes t0 .. t0 + 95, at most seven
-// words), builds both strands at t0 and then, from window t to t + 1,
-// shifts one code into each (forward F << 2 | c[t + w]; the complement's
-// source S >> 2 | c[t + 64] << 126), so a window costs its slide, the
-// mask, the compare and, if valid, the hash and the filter.
-// Validity is one upper-bound search of the genome's bounds row a thread
-// (not a window), then a walk forward as its windows pass run starts.
+// One body serves all three (slide_kernel).  A thread takes C
+// consecutive windows (C = 32 in K1 and K7, 8 in K11) from t0 = C x its
+// index: it reads the words its windows touch once (at most seven), builds
+// both strands at t0 and then, from window t to t + 1, shifts one code
+// into each (forward F << 2 | c[t + w]; the complement's source S >> 2 |
+// c[t + 64] << 126), so a window costs its slide, the mask, the compare
+// and, if valid, the hash and the filter.  Its run source first gives a
+// C-bit validity word for the thread's windows:
+//   RunBounds: one upper-bound search of the genome's bounds row a thread
+//     (not a window), then a walk forward as its windows pass run starts;
+//   RunPlane: each warp stages rid[t .. t + 32 C - 1 + 63] of its 32 C
+//     windows into a shared-memory slab in coalesced loads, element e at
+//     e + e / C, so the 32 lanes' reads of rid[t] and rid[t + w - 1] fall
+//     in 32 distinct banks at every step; one __syncwarp, no block
+//     barrier.  The plane is read once.
+// K1 and K7 skip a thread whose word is 0 (padding, a short genome).
 // Four threads of one warp hold a 128-window row: each keeps a 32-bit
 // kept mask, a shuffle scan over the four gives each its first slot, and
-// each rebuilds (as K1 builds a key) and writes only its kept keys (on
-// average 1 in `scale` windows) below k_slots; no block barrier.  K has
-// no limit (the TPU kernel kept the bounds in SMEM and its caller fell
-// back to XLA past g * K = 4096).
+// each rebuilds (strands_at) and writes only its kept keys (on average 1
+// in `scale` windows) below k_slots; no block barrier.  K has no limit
+// (the TPU kernel kept the bounds in SMEM and its caller fell back to XLA
+// past g * K = 4096).  K11 computes every window's key, hashes and
+// filters the valid ones, stages the keys in its warp's shared memory and
+// writes them, and the keep bytes, with the warp's lanes on consecutive
+// windows (EmitAll).
 #include "common.cuh"
 
 namespace sks {
 namespace {
 
-constexpr int SLIDE_C = 32;                    // windows a K7 thread
-constexpr int ROW_THREADS = LANES / SLIDE_C;   // K7 threads a 128-window row
-constexpr int SLIDE_THREADS = 256;             // 64 rows a K7 block
+constexpr int SLIDE_C = 32;                    // windows a K1/K7 thread
+constexpr int EMIT_C = 8;                      // windows a K11 thread
+constexpr int ROW_THREADS = LANES / SLIDE_C;   // K1/K7 threads a 128-window row
+constexpr int SLIDE_THREADS = 256;             // threads a block
+constexpr int SLIDE_WARPS = SLIDE_THREADS / 32;
 constexpr int FAR = 1 << 30;                   // "no bound ahead"
 
 __device__ __forceinline__ uint64_t hash_mix(uint64_t x) {
@@ -155,10 +163,65 @@ __device__ __forceinline__ uint32_t key_word(uint64_t lo, uint64_t hi,
   return static_cast<uint32_t>((q & 1) ? (w >> 32) : w);
 }
 
-// K1's run ids: an int32 plane of n positions per genome.
+// #(b[i] <= t) over an ascending row of k bounds: an upper-bound search.
+__device__ __forceinline__ int bounds_at_or_below(const int32_t* b, int k,
+                                                  int64_t t) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b[mid] <= t) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// RunPlane's slab for threads of C windows: a warp's 32 C windows and
+// the w - 1 <= 63 positions past them, element e at slab_index<C>(e) = e
+// + e / C, so that a lane's stride is C + 1 (odd) and the 32 lanes' reads
+// of one step fall in 32 distinct banks.
+template <int C>
+__host__ __device__ constexpr int slab_index(int e) {
+  return e + e / C;
+}
+
+// K1's and K11's run ids: an int32 plane of n positions per genome.
 struct RunPlane {
   const int32_t* rid;
   int64_t n;
+
+  template <int C>
+  __host__ __device__ static constexpr int slab_ints() {
+    return slab_index<C>(32 * C + 63 - 1) + 1;
+  }
+
+  // Bit i: window t0 + i (i < C) is valid, rid(t) == rid(t + w - 1) >= 0
+  // with rid(t) = -1 at t >= n (JAX's _extract_block_packed).  Every lane
+  // of the warp calls it: the warp stages its positions into `slab` first.
+  template <int C>
+  __device__ __forceinline__ uint32_t valid_word(int64_t g, int64_t t0,
+                                                 int window,
+                                                 int32_t* slab) const {
+    const int lane = static_cast<int>(threadIdx.x) & 31;
+    const int64_t w0 = t0 - lane * C;             // the warp's first window
+    const int32_t* rg = rid + g * n;
+    const int span = 32 * C + window - 1;
+    for (int e = lane; e < span; e += 32) {
+      slab[slab_index<C>(e)] = w0 + e < n ? rg[w0 + e] : -1;
+    }
+    __syncwarp();
+    const int a = lane * C;
+    uint32_t bits = 0;
+#pragma unroll 8
+    for (int i = 0; i < C; ++i) {
+      const int32_t ra = slab[slab_index<C>(a + i)];
+      const int32_t rb = slab[slab_index<C>(a + i + window - 1)];
+      bits |= static_cast<uint32_t>(ra >= 0 && ra == rb) << i;
+    }
+    return bits;
+  }
 };
 
 // K7's run ids: k sorted run starts per genome, the id of the run open at
@@ -169,15 +232,48 @@ struct RunBounds {
   const int32_t* rid0;
   const int32_t* vlen;
   int64_t n;
-};
 
-__device__ __forceinline__ bool window_valid(const RunPlane& s, int64_t g,
-                                             int64_t t, int64_t last) {
-  if (last >= s.n) return false;
-  const int32_t* rg = s.rid + g * s.n;
-  const int32_t ra = rg[t];
-  return ra >= 0 && ra == rg[last];
-}
+  template <int C>
+  __host__ __device__ static constexpr int slab_ints() {
+    return 0;
+  }
+
+  // Bit i: window t0 + i (i < C) is valid: t + w - 1 <
+  // min(vlen, n), rid0 + #(bounds <= t) >= 0 and no bound lies in (t, t +
+  // w - 1].  One search of the bounds for t0, then cnt = #(bounds <= t)
+  // and rel = (the first bound > t) - t0 kept as the windows pass.
+  template <int C>
+  __device__ __forceinline__ uint32_t valid_word(int64_t g, int64_t t0,
+                                                 int window,
+                                                 int32_t*) const {
+    const int64_t lim = min(static_cast<int64_t>(vlen[g]), n);
+    const int64_t room = lim - (window - 1) - t0;  // windows that end in lim
+    if (room <= 0) return 0;
+    const int iend = room < C ? static_cast<int>(room) : C;
+    const int32_t* bg = bounds + g * k;
+    const int64_t r0 = rid0[g];
+    int cnt = bounds_at_or_below(bg, k, t0);
+    auto next_rel = [&]() -> int {
+      return cnt < k ? static_cast<int>(min(bg[cnt] - t0,
+                                            static_cast<int64_t>(FAR)))
+                     : FAR;
+    };
+    int rel = next_rel();
+    bool ok = r0 + cnt >= 0;
+    uint32_t bits = 0;
+    for (int i = 0; i < C; ++i) {
+      if (rel <= i) {  // a run starts at or before window i: walk past it
+        do {
+          ++cnt;
+          rel = next_rel();
+        } while (rel <= i);
+        ok = r0 + cnt >= 0;
+      }
+      if (i < iend && ok && rel >= i + window) bits |= 1u << i;
+    }
+    return bits;
+  }
+};
 
 // One seed for every grid row (grid row y = genome y), or one seed per
 // grid row over ONE shared genome (seed-batch mode: grid row y = seed y,
@@ -277,167 +373,44 @@ __device__ __forceinline__ void canonical_key(const uint32_t* pg,
   strand_key(strands_at(pg, packed_words, t, window), sd, key_lo, key_hi);
 }
 
-// K1/K7 output: each 128-window row's first k_slots kept keys (low
-// out_words words) with all-ones fill, and its true kept count.
-struct CompactRows {
-  uint32_t* out;
-  int32_t* rowcnt;
-  int64_t rows;
-  int k_slots;
-  int out_words;
-  static constexpr bool kKeyEverywhere = false;
-
-  __device__ __forceinline__ uint32_t* row_out(int64_t y, int64_t row,
-                                               int64_t& plane) const {
-    plane = static_cast<int64_t>(gridDim.y) * rows * k_slots;
-    return out + (y * rows + row) * k_slots;
-  }
-
-  // K1: one thread per window, the row a block of LANES threads.
-  __device__ __forceinline__ void store(int64_t y, int64_t row, int64_t,
-                                        bool keep, uint64_t key_lo,
-                                        uint64_t key_hi) const {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const unsigned ballot = __ballot_sync(FULL, keep);
-    __shared__ int wcnt[LANES / 32];
-    if (lane == 0) wcnt[warp] = __popc(ballot);
-    __syncthreads();
-    int base = 0;
-#pragma unroll
-    for (int i = 0; i < LANES / 32; ++i) base += (i < warp) ? wcnt[i] : 0;
-    const int total = wcnt[0] + wcnt[1] + wcnt[2] + wcnt[3];
-    const int rank = base + __popc(ballot & ((1u << lane) - 1u));
-
-    int64_t plane;
-    uint32_t* o = row_out(y, row, plane);
-    if (keep && rank < k_slots) {
-      for (int q = 0; q < out_words; ++q) {
-        o[q * plane + rank] = key_word(key_lo, key_hi, q);
-      }
-    }
-    const int filled = min(total, k_slots);
-    if (static_cast<int>(threadIdx.x) >= filled &&
-        static_cast<int>(threadIdx.x) < k_slots) {
-      for (int q = 0; q < out_words; ++q) o[q * plane + threadIdx.x] = SENT;
-    }
-    if (threadIdx.x == 0) rowcnt[y * rows + row] = total;
-  }
-};
-
-// K11 output: every window's four key words and keep flag, no compaction.
-// The key is computed at every window t < nw, valid or not, as the TPU
-// kernel does.
-struct EmitAll {
-  uint32_t* canon;   // (4, G, nw)
-  uint8_t* keep;     // (G, nw), 0 or 1
-  int64_t nw;
-  static constexpr bool kKeyEverywhere = true;
-
-  __device__ __forceinline__ void store(int64_t y, int64_t, int64_t t,
-                                        bool kept, uint64_t key_lo,
-                                        uint64_t key_hi) const {
-    if (t >= nw) return;
-    const int64_t plane = static_cast<int64_t>(gridDim.y) * nw;
-    const int64_t i = y * nw + t;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) canon[q * plane + i] = key_word(key_lo, key_hi, q);
-    keep[i] = kept;
-  }
-};
-
-// K1 and K11.  grid (rows, Y), block 128: one thread per window of one
-// 128-window row of grid row y (a genome, or a seed over the shared
-// genome)
-template <class Seeds, class Out>
-__global__ void __launch_bounds__(LANES) extract_kernel(
-    const uint32_t* __restrict__ packed, int64_t packed_words, RunPlane runs,
-    int window, Seeds seeds, Filter filt, bool legacy, Out out) {
-  const int64_t row = blockIdx.x;
-  const int64_t y = blockIdx.y;
-  const int64_t t = row * LANES + threadIdx.x;
-  const int64_t g = seeds.genome(y);
-  const Seed sd = seeds.get(y);
-
-  const bool valid = window_valid(runs, g, t, t + window - 1);
-  bool keep = false;
-  uint64_t key_lo = 0, key_hi = 0;
-  if (valid || Out::kKeyEverywhere) {
-    canonical_key(packed + g * packed_words, packed_words, t, window, sd,
-                  key_lo, key_hi);
-    keep = valid &&
-           fmh_keep(hash_bitset128(key_lo, key_hi, legacy), sd.salt, filt);
-  }
-  out.store(y, row, t, keep, key_lo, key_hi);
-}
-
-// #(b[i] <= t) over an ascending row of k bounds: an upper-bound search.
-__device__ __forceinline__ int bounds_at_or_below(const int32_t* b, int k,
-                                                  int64_t t) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (b[mid] <= t) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// K7: the kept mask of the SLIDE_C windows t0 .. t0 + 31 of genome g (t0
-// a multiple of 16), bit i for window t0 + i.  Window t is valid iff t +
-// w - 1 < min(vlen, n), rid0 + #(bounds <= t) >= 0 and no bound lies in
-// (t, t + w - 1]; the thread searches the bounds once for t0 and keeps
-// cnt = #(bounds <= t) and rel = (the first bound > t) - t0 as it walks.
+// The C windows t0 .. t0 + C - 1 of one genome (C <= 32, t0 a multiple
+// of 4): both strands built once at t0 and slid one code a window.
+// Window i's key is computed where bit i of `valid` is set, or at every
+// window (kKeyEverywhere, K11), and handed to keys.key(i, lo, hi); a
+// valid window is hashed and filtered, and bit i of the result says it is
+// kept.
+template <int C, bool kKeyEverywhere, class Keys>
 __device__ __forceinline__ uint32_t slide_windows(
-    const uint32_t* pg, int64_t packed_words, const RunBounds& runs,
-    int64_t g, int64_t t0, int window, const Seed& sd, const Filter& filt,
-    bool legacy) {
-  const int64_t lim = min(static_cast<int64_t>(runs.vlen[g]), runs.n);
-  const int64_t room = lim - (window - 1) - t0;  // windows that end in lim
-  if (room <= 0) return 0;
-  const int iend = room < SLIDE_C ? static_cast<int>(room) : SLIDE_C;
-  const int32_t* bg = runs.bounds + g * runs.k;
-  const int64_t rid0 = runs.rid0[g];
-  int cnt = bounds_at_or_below(bg, runs.k, t0);
-  auto next_rel = [&]() -> int {
-    return cnt < runs.k ? static_cast<int>(min(bg[cnt] - t0,
-                                               static_cast<int64_t>(FAR)))
-                        : FAR;
-  };
-  int rel = next_rel();
-  bool ok = rid0 + cnt >= 0;
-
-  // the codes that enter s (t0 + 64 ..) and f (t0 + w ..), 32 of each
-  const int64_t a = t0 >> 4;
+    const uint32_t* pg, int64_t packed_words, int64_t t0, int window,
+    const Seed& sd, const Filter& filt, bool legacy, uint32_t valid,
+    Keys& keys) {
+  // the 32 codes from position u, u's word and the two after it; the
+  // funnel shift is guarded at 0, whose 64-bit shift C++ leaves undefined
   auto word = [&](int64_t i) -> uint64_t {
     return i < packed_words ? pg[i] : 0u;
   };
-  uint64_t next_s = word(a + 4) | (word(a + 5) << 32);
-  const int64_t b = a + (window >> 4);
-  const int o = 2 * (window & 15);
-  const uint64_t x0 = word(b) | (word(b + 1) << 32);
-  uint64_t next_f = o ? (x0 >> o) | (word(b + 2) << (64 - o)) : x0;
+  auto codes_from = [&](int64_t u) -> uint64_t {
+    const int64_t b = u >> 4;
+    const int o = 2 * static_cast<int>(u & 15);
+    const uint64_t x = word(b) | (word(b + 1) << 32);
+    return o ? (x >> o) | (word(b + 2) << (64 - o)) : x;
+  };
+  // the codes that enter s (t0 + 64 ..) and f (t0 + w ..)
+  uint64_t next_s = codes_from(t0 + 64);
+  uint64_t next_f = codes_from(t0 + window);
   Strands st = strands_at(pg, packed_words, t0, window);
 
   uint32_t kept = 0;
 #pragma unroll 4
-  for (int i = 0; i < SLIDE_C; ++i) {
-    if (rel <= i) {  // a run starts at or before window i: walk past it
-      do {
-        ++cnt;
-        rel = next_rel();
-      } while (rel <= i);
-      ok = rid0 + cnt >= 0;
-    }
-    if (i < iend && ok && rel >= i + window) {
+  for (int i = 0; i < C; ++i) {
+    const bool v = (valid >> i) & 1u;
+    if (kKeyEverywhere || v) {
       uint64_t lo, hi;
       strand_key(st, sd, lo, hi);
-      if (fmh_keep(hash_bitset128(lo, hi, legacy), sd.salt, filt)) {
+      if (v && fmh_keep(hash_bitset128(lo, hi, legacy), sd.salt, filt)) {
         kept |= 1u << i;
       }
+      keys.key(i, lo, hi);
     }
     slide(st, static_cast<uint32_t>(next_f & 3),
           static_cast<uint32_t>(next_s & 3));
@@ -447,60 +420,161 @@ __device__ __forceinline__ uint32_t slide_windows(
   return kept;
 }
 
-// K7.  grid (ceil(rows * 4 / 256), Y), block 256: four threads of one
-// warp per 128-window row of grid row y (a genome, or a seed over the
-// shared genome), SLIDE_C windows each.
-template <class Seeds>
+// K1 and K7 keep no key on the way: the kept ones are rebuilt.
+struct NoKeys {
+  __device__ __forceinline__ void key(int, uint64_t, uint64_t) {}
+};
+
+// K1/K7 output: each 128-window row's first k_slots kept keys (low
+// out_words words) with all-ones fill, and its true kept count.
+struct CompactRows {
+  static constexpr int kWindows = SLIDE_C;
+  static constexpr int kStageWords = 0;
+  uint32_t* out;
+  int32_t* rowcnt;
+  int64_t rows;
+  int k_slots;
+  int out_words;
+
+  // Four threads of one warp a row, ranked by a shuffle scan of their
+  // kept counts; every lane of the warp calls it.
+  __device__ __forceinline__ void run(const uint32_t* pg,
+                                      int64_t packed_words, int64_t thread,
+                                      int64_t y, int window, const Seed& sd,
+                                      const Filter& filt, bool legacy,
+                                      uint32_t valid, uint32_t*) const {
+    const int64_t row = thread / ROW_THREADS;
+    const int part = static_cast<int>(threadIdx.x) & (ROW_THREADS - 1);
+    const int64_t t0 = thread * SLIDE_C;
+    const bool active = row < rows;
+    NoKeys none;
+    const uint32_t kept =
+        active && valid != 0
+            ? slide_windows<SLIDE_C, false>(pg, packed_words, t0, window,
+                                            sd, filt, legacy, valid, none)
+            : 0u;
+
+    const int cnt = __popc(kept);
+    int incl = cnt;
+#pragma unroll
+    for (int d = 1; d < ROW_THREADS; d <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, d, ROW_THREADS);
+      if (part >= d) incl += v;
+    }
+    const int total = __shfl_sync(FULL, incl, ROW_THREADS - 1, ROW_THREADS);
+    if (!active) return;
+
+    // the kept keys, rebuilt one at a time, into slots below k_slots
+    const int64_t plane = static_cast<int64_t>(gridDim.y) * rows * k_slots;
+    uint32_t* o = out + (y * rows + row) * k_slots;
+    int slot = incl - cnt;
+    for (uint32_t m = kept; m != 0 && slot < k_slots; m &= m - 1, ++slot) {
+      uint64_t lo, hi;
+      canonical_key(pg, packed_words, t0 + __ffs(m) - 1, window, sd, lo, hi);
+      for (int q = 0; q < out_words; ++q) {
+        o[q * plane + slot] = key_word(lo, hi, q);
+      }
+    }
+    for (int s = min(total, k_slots) + part; s < k_slots; s += ROW_THREADS) {
+      for (int q = 0; q < out_words; ++q) o[q * plane + s] = SENT;
+    }
+    if (part == 0) rowcnt[y * rows + row] = total;
+  }
+};
+
+// K11's staging of a warp's 32 EMIT_C keys: word q of the warp's window e
+// at stage[q * STAGE_PLANE + slab_index<32>(e)].  At a step of the slide
+// the 32 lanes' windows lie EMIT_C apart, at a step of the write-out 1
+// apart; both fall in 32 distinct banks.
+constexpr int STAGE_PLANE = slab_index<32>(32 * EMIT_C - 1) + 1;
+
+struct StageKeys {
+  uint32_t* stage;
+  int e0;   // the lane's first window in the warp
+
+  __device__ __forceinline__ void key(int i, uint64_t lo, uint64_t hi) {
+    uint32_t* s = stage + slab_index<32>(e0 + i);
+    s[0] = static_cast<uint32_t>(lo);
+    s[STAGE_PLANE] = static_cast<uint32_t>(lo >> 32);
+    s[2 * STAGE_PLANE] = static_cast<uint32_t>(hi);
+    s[3 * STAGE_PLANE] = static_cast<uint32_t>(hi >> 32);
+  }
+};
+
+// K11 output: every window's four key words and keep flag, no compaction.
+// The key is computed at every window t < nw, valid or not, as the TPU
+// kernel does.  A thread takes EMIT_C consecutive windows and stages their
+// keys in its warp's shared memory; then the warp writes its 32 EMIT_C
+// windows of each plane, and their keep bytes, with its 32 lanes on
+// consecutive windows, so every store instruction covers whole lines.
+// (Each of 32 lanes storing its own 32 windows, 16 bytes at a time and
+// 128 bytes apart, took 7.2 times as long as the one-thread-a-window
+// kernel on an H100, and the cost fell with the lanes' spacing: PERF.md.)
+struct EmitAll {
+  static constexpr int kWindows = EMIT_C;
+  static constexpr int kStageWords = 4 * STAGE_PLANE;
+  uint32_t* canon;   // (4, G, nw)
+  uint8_t* keep;     // (G, nw), 0 or 1
+  int64_t nw;
+
+  // Every lane of the warp calls it.
+  __device__ __forceinline__ void run(const uint32_t* pg,
+                                      int64_t packed_words, int64_t thread,
+                                      int64_t y, int window, const Seed& sd,
+                                      const Filter& filt, bool legacy,
+                                      uint32_t valid, uint32_t* stage) const {
+    constexpr int C = EMIT_C;
+    const int lane = static_cast<int>(threadIdx.x) & 31;
+    const int64_t t0 = thread * C;
+    const int64_t w0 = t0 - lane * C;            // the warp's first window
+    StageKeys keys{stage, lane * C};
+    const uint32_t kept =
+        t0 < nw ? slide_windows<C, true>(pg, packed_words, t0, window, sd,
+                                         filt, legacy, valid, keys)
+                : 0u;
+    __syncwarp();
+    const int64_t plane = static_cast<int64_t>(gridDim.y) * nw;
+    uint32_t* row = canon + y * nw + w0;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      const int e = lane + 32 * r;
+      const bool in = w0 + e < nw;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (in) row[q * plane + e] = stage[q * STAGE_PLANE + slab_index<32>(e)];
+      }
+      const uint32_t bits = __shfl_sync(FULL, kept, e / C);
+      if (in) keep[y * nw + w0 + e] = (bits >> (e % C)) & 1u;
+    }
+  }
+};
+
+// K1, K7 and K11.  grid (ceil(threads / 256), Y), block 256: each thread
+// takes Out::kWindows consecutive windows of grid row y (a genome, or a
+// seed over the shared genome); K1's and K7's four threads of one warp
+// hold a 128-window row.  Each warp has its own slab and staging area.
+template <class Runs, class Seeds, class Out>
 __global__ void __launch_bounds__(SLIDE_THREADS) slide_kernel(
-    const uint32_t* __restrict__ packed, int64_t packed_words,
-    RunBounds runs, int window, Seeds seeds, Filter filt, bool legacy,
-    CompactRows out) {
+    const uint32_t* __restrict__ packed, int64_t packed_words, Runs runs,
+    int window, Seeds seeds, Filter filt, bool legacy, Out out) {
+  constexpr int C = Out::kWindows;
+  constexpr int kSlab = Runs::template slab_ints<C>();
+  __shared__ int32_t slab[SLIDE_WARPS * kSlab + 1];
+  __shared__ uint32_t stage[SLIDE_WARPS * Out::kStageWords + 1];
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
   const int64_t thread =
       static_cast<int64_t>(blockIdx.x) * SLIDE_THREADS + threadIdx.x;
-  const int64_t row = thread / ROW_THREADS;
-  const int part = static_cast<int>(threadIdx.x) & (ROW_THREADS - 1);
   const int64_t y = blockIdx.y;
   const int64_t g = seeds.genome(y);
   const Seed sd = seeds.get(y);
-  const int64_t t0 = thread * SLIDE_C;
-  const uint32_t* pg = packed + g * packed_words;
-  const bool active = row < out.rows;
-  const uint32_t kept =
-      active ? slide_windows(pg, packed_words, runs, g, t0, window, sd, filt,
-                             legacy)
-             : 0u;
-
-  // the row's kept counts, scanned across its four threads
-  const int cnt = __popc(kept);
-  int incl = cnt;
-#pragma unroll
-  for (int d = 1; d < ROW_THREADS; d <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, d, ROW_THREADS);
-    if (part >= d) incl += v;
-  }
-  const int total = __shfl_sync(FULL, incl, ROW_THREADS - 1, ROW_THREADS);
-  if (!active) return;
-
-  // the kept keys, rebuilt one at a time, into slots below k_slots
-  int64_t plane;
-  uint32_t* o = out.row_out(y, row, plane);
-  int slot = incl - cnt;
-  for (uint32_t m = kept; m != 0 && slot < out.k_slots; m &= m - 1, ++slot) {
-    uint64_t lo, hi;
-    canonical_key(pg, packed_words, t0 + __ffs(m) - 1, window, sd, lo, hi);
-    for (int q = 0; q < out.out_words; ++q) {
-      o[q * plane + slot] = key_word(lo, hi, q);
-    }
-  }
-  for (int s = min(total, out.k_slots) + part; s < out.k_slots;
-       s += ROW_THREADS) {
-    for (int q = 0; q < out.out_words; ++q) o[q * plane + s] = SENT;
-  }
-  if (part == 0) out.rowcnt[y * out.rows + row] = total;
+  const uint32_t valid = runs.template valid_word<C>(
+      g, thread * C, window, slab + warp * kSlab);
+  out.run(packed + g * packed_words, packed_words, thread, y, window, sd,
+          filt, legacy, valid, stage + warp * Out::kStageWords);
 }
 
-bool args_ok(int ys, int64_t rows, int window) {
-  return ys > 0 && ys <= 65535 && rows > 0 && window >= 1 && window <= 64;
+bool args_ok(int ys, int64_t threads, int window) {
+  return ys > 0 && ys <= 65535 && threads > 0 && window >= 1 && window <= 64;
 }
 
 // The filter of the wrapper's (scale, magic, l); its scale is 0 (which
@@ -512,31 +586,15 @@ Filter make_filter(int scale, uint64_t magic, int l) {
           l > 0 ? l - 1 : 0};
 }
 
-// K1 and K11's launch: one block per 128-window row.
-template <class Seeds, class Out>
-int launch_rows(const void* packed, int64_t packed_words,
-                const RunPlane& runs, int ys, int64_t rows, int window,
-                Seeds seeds, const Filter& filt, int legacy, Out out,
-                void* stream) {
-  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(ys));
-  extract_kernel<Seeds, Out><<<grid, LANES, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(packed), packed_words, runs, window, seeds,
-      filt, legacy != 0, out);
-  return last_error();
-}
-
-// K7's launch: 64 rows a block.
-template <class Seeds>
-int launch_rows(const void* packed, int64_t packed_words,
-                const RunBounds& runs, int ys, int64_t rows, int window,
-                Seeds seeds, const Filter& filt, int legacy, CompactRows out,
-                void* stream) {
-  const int64_t blocks =
-      (rows * ROW_THREADS + SLIDE_THREADS - 1) / SLIDE_THREADS;
+// Every launch: `threads` threads of each grid row, 256 a block.
+template <class Runs, class Seeds, class Out>
+int launch_rows(const void* packed, int64_t packed_words, const Runs& runs,
+                int ys, int64_t threads, int window, Seeds seeds,
+                const Filter& filt, int legacy, Out out, void* stream) {
+  const int64_t blocks = (threads + SLIDE_THREADS - 1) / SLIDE_THREADS;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(ys));
-  slide_kernel<Seeds><<<grid, SLIDE_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  slide_kernel<Runs, Seeds, Out><<<grid, SLIDE_THREADS, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(packed), packed_words, runs, window, seeds,
       filt, legacy != 0, out);
   return last_error();
@@ -550,7 +608,8 @@ int launch_compact(const void* packed, int64_t packed_words, Runs runs,
                    uint64_t mask_hi, uint64_t salt, const void* seeds,
                    const Filter& filt, int legacy, int k_slots, int out_words,
                    void* out, void* rowcnt, void* stream) {
-  if (!args_ok(g, rows, window) || filt.scale == 0 || k_slots < 1 ||
+  const int64_t threads = rows * ROW_THREADS;
+  if (!args_ok(g, threads, window) || filt.scale == 0 || k_slots < 1 ||
       k_slots > LANES || out_words < 1 || out_words > 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -559,12 +618,12 @@ int launch_compact(const void* packed, int64_t packed_words, Runs runs,
                       out_words};
   if (seeds != nullptr) {
     const SeedRows sr{static_cast<const uint64_t*>(seeds)};
-    return launch_rows(packed, packed_words, runs, g, rows, window, sr, filt,
-                       legacy, o, stream);
+    return launch_rows(packed, packed_words, runs, g, threads, window, sr,
+                       filt, legacy, o, stream);
   }
   const OneSeed one{{mask_lo, mask_hi, salt}};
-  return launch_rows(packed, packed_words, runs, g, rows, window, one, filt,
-                     legacy, o, stream);
+  return launch_rows(packed, packed_words, runs, g, threads, window, one,
+                     filt, legacy, o, stream);
 }
 
 }  // namespace
@@ -623,15 +682,15 @@ extern "C" int sks_extract_filter(
     uint64_t salt, int scale, uint64_t fmh_magic, int fmh_shift, int legacy,
     void* canon, void* keep, void* stream) {
   const sks::Filter filt = sks::make_filter(scale, fmh_magic, fmh_shift);
-  const int64_t rows = (nw + sks::LANES - 1) / sks::LANES;
+  const int64_t threads = (nw + sks::EMIT_C - 1) / sks::EMIT_C;
   if (16 * packed_words < n || nw < 1 || nw > n || filt.scale == 0 ||
-      !sks::args_ok(g, rows, window)) {
+      !sks::args_ok(g, threads, window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const sks::RunPlane runs{static_cast<const int32_t*>(rid), n};
   const sks::OneSeed one{{mask_lo, mask_hi, salt}};
   const sks::EmitAll out{static_cast<uint32_t*>(canon),
                          static_cast<uint8_t*>(keep), nw};
-  return sks::launch_rows(packed, packed_words, runs, g, rows, window, one,
-                          filt, legacy, out, stream);
+  return sks::launch_rows(packed, packed_words, runs, g, threads, window,
+                          one, filt, legacy, out, stream);
 }

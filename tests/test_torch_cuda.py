@@ -46,25 +46,59 @@ def genome_batch(rng, g, n, runs):
     return codes, rid
 
 
+def hard_plane(rng, g, n):
+    """(G, n) int32 run ids no sorted-bounds form gives: runs of 1-300
+    positions whose ids repeat out of order, -1 holes inside the genome,
+    single-position runs, and a -1 tail past a random end."""
+    rid = np.empty((g, n), np.int32)
+    for gi in range(g):
+        pos = 0
+        while pos < n:
+            ln = int(rng.integers(1, 300)) if rng.random() > 0.1 else 1
+            rid[gi, pos:pos + ln] = int(rng.integers(-1, 6))
+            pos += ln
+        rid[gi, n - int(rng.integers(0, 2000)):] = -1
+    return rid
+
+
+def k1_inputs(rng, dev, g, plane, window):
+    """Codes packed on the device and a run-id plane: three runs and a -1
+    tail over 2^18 codes, or (plane "hard") hard_plane over 2^18 - 93
+    codes, so the plane ends inside a 128-window row."""
+    if plane == "runs":
+        codes, rid = genome_batch(rng, g, 262144, [100000, 40, 100000])
+    else:
+        n = 262144 - 93
+        codes = rng.integers(0, 4, (g, n)).astype(np.uint8)
+        rid = hard_plane(rng, g, n)
+    p = extract.pack_codes(torch.from_numpy(codes).to(dev))
+    return codes, rid, p, torch.from_numpy(rid).to(dev)
+
+
+@pytest.mark.parametrize("plane", ["runs", "hard"])
 @pytest.mark.parametrize("variant", ["modern", "legacy"])
-@pytest.mark.parametrize("window,k", [(10, 10), (20, 16), (31, 20),
+@pytest.mark.parametrize("window,k", [(1, 1), (10, 10), (20, 16), (31, 20),
                                       (33, 25), (50, 40), (64, 40)])
-def test_k1_matches_plain(dev, window, k, variant):
+def test_k1_matches_plain(dev, window, k, variant, plane):
+    """K1 against its plain version on three runs and on non-monotone
+    planes with -1 holes that end mid-row (nw not a multiple of 32)."""
     rng = np.random.default_rng(window)
-    g, n = 2, 262144
-    codes, rid = genome_batch(rng, g, n, [100000, 40, 100000])
+    g = 2
+    _, rid, p, r = k1_inputs(rng, dev, g, plane, window)
     mask = spaced_seed_mask(window, k, 0)
     salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
-    p = torch.from_numpy(extract.pack2bit_rows(codes).view(np.int32)).to(dev)
-    r = torch.from_numpy(rid).to(dev)
     kw = finish_words(window)
-    nw = n - (16 * (kw - 1) + 1) + 1
-    args = dict(window=window, nw=nw, scale=20, variant=variant,
-                k_slots=_k_slots_for(nw, 20, 4096), out_words=kw)
+    nw = rid.shape[1] - (16 * (kw - 1) + 1) + 1
+    scale = 2 if window == 1 else 20
+    args = dict(window=window, nw=nw, scale=scale, variant=variant,
+                k_slots=_k_slots_for(nw, scale, 4096), out_words=kw)
+    build.reset_launches()
     got = extract.extract_compact(p, r, mask.words_u32, salt, **args)
+    assert build.KERNELS["K1"].launches == 1
     want = extract.extract_compact_plain(p, r, mask.words_u32, salt, **args)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
 
 
 @pytest.mark.parametrize("kw", [1, 2, 4])
@@ -615,31 +649,47 @@ def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
     np.testing.assert_array_equal(np.diag(out.inter), out.counts)
 
 
-def test_k1_k7_seed_mode_match_plain_and_single_launches(dev):
+@pytest.mark.parametrize("window,k,plane", [(20, 16, "runs"),
+                                            (1, 1, "runs"), (64, 40, "runs"),
+                                            (20, 16, "hard"),
+                                            (64, 40, "hard")])
+def test_k1_k7_seed_mode_match_plain_and_single_launches(dev, window, k,
+                                                        plane):
     """K1's seed-batch mode (8 seeds over one genome) against its plain
-    version and against 8 single-seed K1 launches; K7's seed-batch mode
-    against its plain version."""
+    version and against 8 single-seed K1 launches, on three runs and on a
+    non-monotone plane with -1 holes; K7's seed-batch mode over the runs'
+    bounds against its plain version and K1's counts."""
     rng = np.random.default_rng(12)
-    n, window = 262144, 20
-    codes, rid = genome_batch(rng, 1, n, [100000, 40, 150000])
-    masks = [spaced_seed_mask(window, 16, s) for s in range(8)]
+    if plane == "runs":
+        n = 262144
+        codes, rid = genome_batch(rng, 1, n, [100000, 40, 150000])
+    else:
+        n = 262144 - 93
+        codes = rng.integers(0, 4, (1, n)).astype(np.uint8)
+        rid = hard_plane(rng, 1, n)
+    masks = [spaced_seed_mask(window, k, s) for s in range(8)]
     salts = [boosthash.fmh_salt(m.lo, m.hi, window, 1, "modern")
              for m in masks]
     mw = np.stack([m.words_u32 for m in masks])
     p = extract.pack_codes(torch.from_numpy(codes).to(dev))
     r = torch.from_numpy(rid).to(dev)
     nw = n - window + 1
-    args = dict(window=window, nw=nw, scale=50, variant="modern",
-                k_slots=_k_slots_for(nw, 50, 8192), out_words=2)
+    scale = 2 if window == 1 else 50
+    args = dict(window=window, nw=nw, scale=scale, variant="modern",
+                k_slots=_k_slots_for(nw, scale, 8192),
+                out_words=finish_words(window))
     build.reset_launches()
     got = extract.extract_compact(p, r, mw, salts, **args)
     assert build.KERNELS["K1"].launches == 1
     want = extract.extract_compact_plain(p, r, mw, salts, **args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
     for i in range(8):
         one = extract.extract_compact(p, r, mw[i], salts[i], **args)
         assert torch.equal(got[0][:, i:i + 1], one[0])
         assert torch.equal(got[1][i:i + 1], one[1])
+    if plane != "runs":
+        return
     body = extract.packed_body(n)
     pb = torch.from_numpy(extract.pack2bit(codes[0], body // 16)
                           .view(np.int32)[None]).to(dev)
@@ -657,18 +707,30 @@ def test_k1_k7_seed_mode_match_plain_and_single_launches(dev):
     assert torch.equal(raw[1], got[1])
 
 
-@pytest.mark.parametrize("window,k,variant", [(20, 16, "modern"),
-                                              (33, 25, "legacy"),
-                                              (64, 40, "modern")])
-def test_k11_matches_plain(dev, window, k, variant):
-    """K11 against its plain version at every window, valid or not."""
+@pytest.mark.parametrize("window,k,variant,g,plane", [
+    (20, 16, "modern", 2, "runs"), (33, 25, "legacy", 2, "runs"),
+    (64, 40, "modern", 2, "runs"), (1, 1, "modern", 3, "hard"),
+    (20, 16, "modern", 5, "hard"), (33, 25, "legacy", 3, "hard"),
+    (64, 40, "modern", 5, "hard")])
+def test_k11_matches_plain(dev, window, k, variant, g, plane):
+    """K11 against its plain version at every window, valid or not, on
+    three runs and on non-monotone planes with -1 holes whose nw is odd
+    at G = 3 and 5, so plane rows and keep rows start at every offset
+    from 16-byte alignment."""
     rng = np.random.default_rng(window)
-    codes, rid = genome_batch(rng, 2, 262144, [100000, 40, 100000])
+    if plane == "runs":
+        codes, rid = genome_batch(rng, g, 262144, [100000, 40, 100000])
+    else:
+        n = 262144 - 93 + (window + 1) % 2        # nw odd
+        codes = rng.integers(0, 4, (g, n)).astype(np.uint8)
+        rid = hard_plane(rng, g, n)
+        assert (n - window + 1) % 2 == 1
     mask = spaced_seed_mask(window, k, 1)
     salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
     c = torch.from_numpy(codes).to(dev)
     r = torch.from_numpy(rid).to(dev)
-    args = dict(window=window, scale=20, variant=variant)
+    args = dict(window=window, scale=2 if window == 1 else 20,
+                variant=variant)
     build.reset_launches()
     got = extract.extract_filter(c, r, mask.words_u32, salt, **args)
     want = extract.extract_filter_plain(c, r, mask.words_u32, salt, **args)

@@ -1,18 +1,22 @@
-"""Models of the decompositions of K7 (the sliding raw-word extract) and K4
-(the register tile sort), held on the CPU to the port's plain versions.
+"""Models of the decompositions of K1, K7 and K11 (the sliding extracts)
+and K4 (the register tile sort), held on the CPU to the port's plain
+versions.
 
 The CUDA kernels cannot run here, so each test re-traces one kernel's
 decomposition in numpy, as csrc/extract.cu and csrc/sort.cu compute it:
 
-* K7: the FracMinHash filter's remainder as a multiply-high by the
-  reciprocal that ops/cuda/extract.fmh_divisor computes, a shift, a
-  multiply and a subtract; a thread's 32 windows from a word-aligned
-  start, its two strands built once and slid one code a window (the
-  forward strand from a stream of the codes at t + w, the complement's
-  source from the codes at t + 64); one upper-bound search of the run
-  starts a thread and a walk forward; each 128-window row's four kept
-  masks scanned into slots, the kept keys rebuilt into them, the
-  sentinel fill and the row count.
+* K1, K7 and K11: the FracMinHash filter's remainder as a multiply-high
+  by the reciprocal that ops/cuda/extract.fmh_divisor computes, a shift,
+  a multiply and a subtract; a thread's 32 (K11: 8) windows, its two
+  strands built once and slid one code a window (the forward strand from
+  a stream of the codes at t + w, the complement's source from the codes
+  at t + 64); K7's one upper-bound search of the run starts a thread and
+  its walk forward; K1's and K11's run-id plane staged a warp at a time
+  in a shared-memory slab (its banks, and the values it returns); each
+  128-window row's four kept masks scanned into slots, the kept keys
+  rebuilt into them, the sentinel fill and the row count; K11's keys
+  staged a warp at a time and written with the lanes on consecutive
+  windows, its keep bytes from the lanes' kept masks.
 * K4: the tile by kw, each thread's E keys sorted by an unrolled bitonic
   network, the block's merge-path levels (each thread's diagonal found by
   a binary search, then E outputs merged in turn), and K5's levels above
@@ -38,8 +42,9 @@ U64 = np.uint64
 M32 = (1 << 32) - 1
 M64 = (1 << 64) - 1
 SENT = 0xFFFFFFFF
-C = 32                 # K7: windows a thread
-ROW_THREADS = 4        # K7: threads a 128-window row
+C = 32                 # K1 and K7: windows a thread
+EMIT_C = 8             # K11: windows a thread
+ROW_THREADS = 4        # K1 and K7: threads a 128-window row
 FAR = 1 << 30
 
 
@@ -185,19 +190,26 @@ def strand_key(st, mask_lo: int, mask_hi: int):
     return np.where(fwd, f_lo, rc_lo), np.where(fwd, f_hi, rc_hi)
 
 
-def thread_keys(words: Words, t0: np.ndarray, window: int, mask):
-    """Each thread's 32 canonical keys (threads, 32) as slide_windows
+def codes_from(words: Words, pos: np.ndarray) -> np.ndarray:
+    """The 32 codes from position pos as one 64-bit stream: pos's word and
+    the two after it, funnel-shifted by 2 (pos & 15) bits (guarded at 0)."""
+    b, o = pos >> 4, (2 * (pos & 15)).astype(U64)
+    x = words(b) | (words(b + 1) << u(32))
+    on = o != 0
+    return np.where(on, shr(x, o) | shl(words(b + 2),
+                                         np.where(on, u(64) - o, u(0))), x)
+
+
+def thread_keys(words: Words, t0: np.ndarray, window: int, mask, c=C):
+    """Each thread's c canonical keys (threads, c) as slide_windows
     computes them: strands at t0, then one slide a window, the codes
-    taken from the two streams."""
-    a = t0 >> 4
-    next_s = words(a + 4) | (words(a + 5) << u(32))
-    b, o = a + (window >> 4), 2 * (window & 15)
-    x0 = words(b) | (words(b + 1) << u(32))
-    next_f = (shr(x0, o) | shl(words(b + 2), 64 - o)) if o else x0
+    taken from the two streams (t0 + 64 .., t0 + w ..)."""
+    next_s = codes_from(words, t0 + 64)
+    next_f = codes_from(words, t0 + window)
     st = strands_at(words, t0, window)
-    lo = np.zeros((t0.size, C), U64)
+    lo = np.zeros((t0.size, c), U64)
     hi = np.zeros_like(lo)
-    for i in range(C):
+    for i in range(c):
         lo[:, i], hi[:, i] = strand_key(st, mask.lo, mask.hi)
         st = slide(st, next_f & u(3), next_s & u(3))
         next_f, next_s = next_f >> u(2), next_s >> u(2)
@@ -222,7 +234,8 @@ WINDOWS = [(1, 1), (2, 2), (15, 9), (16, 16), (17, 12), (31, 20), (32, 32),
 
 @pytest.mark.parametrize("window,k", WINDOWS)
 def test_sliding_strands_match_the_direct_build(window, k):
-    """Every window of every thread, from the thread's first window slid
+    """Every window of every thread (32 windows a thread, as K1 and K7
+    take them, and 8, as K11 does), from the thread's first window slid
     one code at a time, and the rebuild of a kept key at any window, equal
     the direct key build; the last words run past the packed body."""
     rng = np.random.default_rng(window * 100 + k)
@@ -230,14 +243,14 @@ def test_sliding_strands_match_the_direct_build(window, k):
     codes = rng.integers(0, 4, n).astype(np.uint8)
     packed = extract.pack2bit(codes, -(-n // 16)).astype(U64)
     words = Words(packed)
-    for seed in (0, 1):
+    for seed, c in ((0, C), (1, C), (0, EMIT_C)):
         mask = spaced_seed_mask(window, k, seed)
-        t0 = np.arange(0, 16 * packed.size, C, dtype=np.int64)
-        lo, hi = thread_keys(words, t0, window, mask)
-        want_lo, want_hi = direct_keys(codes, t0.size * C, window, mask)
+        t0 = np.arange(0, 16 * packed.size, c, dtype=np.int64)
+        lo, hi = thread_keys(words, t0, window, mask, c)
+        want_lo, want_hi = direct_keys(codes, t0.size * c, window, mask)
         np.testing.assert_array_equal(lo.reshape(-1), want_lo)
         np.testing.assert_array_equal(hi.reshape(-1), want_hi)
-        t = np.arange(t0.size * C, dtype=np.int64)
+        t = np.arange(t0.size * c, dtype=np.int64)
         r_lo, r_hi = strand_key(strands_at(words, t, window), mask.lo,
                                 mask.hi)
         np.testing.assert_array_equal(r_lo, want_lo)
@@ -326,41 +339,59 @@ def test_run_walk_matches_the_run_id_plane(window):
 
 # --- K7 whole: rows ranked by a scan over four threads -----------------------
 
+def compact_rows_model(words: Words, valid: np.ndarray, mask, salt, *,
+                       window, scale, variant, k_slots, out_words):
+    """One grid row of K1 or K7 (CompactRows) from each thread's validity
+    (threads, 32) bool: the thread's keys slid from t0 (a thread whose
+    word is 0 computes none), the valid ones hashed and filtered, the
+    row's four kept counts scanned, the kept keys below k_slots rebuilt
+    into their slots, the sentinel fill and the true row counts."""
+    threads = valid.shape[0]
+    rows = threads // ROW_THREADS
+    t0 = np.arange(threads, dtype=np.int64) * C
+    live = valid.any(1)
+    lo = np.zeros((threads, C), U64)
+    hi = np.zeros_like(lo)
+    lo[live], hi[live] = thread_keys(words, t0[live], window, mask)
+    hashed = boosthash.hash_bitset128(lo[valid], hi[valid],
+                                      variant) ^ u(salt)
+    kept = np.zeros_like(valid)
+    kept[valid] = model_mod(hashed, scale) == 0
+    # the row's four counts scanned; each thread's keys in order
+    counts = kept.sum(1).reshape(rows, ROW_THREADS)
+    first = (np.cumsum(counts, 1) - counts).reshape(-1)
+    slot = first[:, None] + np.cumsum(kept, 1) - 1
+    out = np.full((out_words, rows * k_slots), SENT, np.uint32)
+    th, i = np.nonzero(kept & (slot < k_slots))
+    r_lo, r_hi = strand_key(strands_at(words, t0[th] + i, window), mask.lo,
+                            mask.hi)
+    dst = th // ROW_THREADS * k_slots + slot[th, i]
+    key = [r_lo & u(M32), r_lo >> u(32), r_hi & u(M32), r_hi >> u(32)]
+    for q in range(out_words):
+        out[q, dst] = key[q].astype(np.uint32)
+    return out, counts.sum(1).astype(np.int32)
+
+
 def k7_model(packed, bounds, rid0, vlen, mask, salt, *, window, nw, scale,
              variant, k_slots, out_words):
     """K7 (one seed per genome row) as its kernel computes it."""
     g, p = packed.shape
     n = 16 * p
-    rows = extract.out_rows(nw)
-    threads = rows * ROW_THREADS
-    out = np.full((out_words, g, rows * k_slots), SENT, np.uint32)
-    rowcnt = np.zeros((g, rows), np.int32)
+    threads = extract.out_rows(nw) * ROW_THREADS
+    outs, counts = [], []
     for gi in range(g):
-        words = Words(packed[gi].astype(np.uint32))
-        t0 = np.arange(threads, dtype=np.int64) * C
-        lo, hi = thread_keys(words, t0, window, mask)
         brow = [int(x) for x in bounds[gi]]
-        bits = [thread_valid(brow, int(rid0[gi]), int(vlen[gi]), n,
-                             int(t), window) for t in t0]
-        valid = (np.array(bits, np.int64)[:, None] >> np.arange(C)) & 1 == 1
-        hashed = boosthash.hash_bitset128(lo[valid], hi[valid],
-                                          variant) ^ u(salt)
-        kept = np.zeros_like(valid)
-        kept[valid] = model_mod(hashed, scale) == 0
-        # the row's four counts scanned; each thread's keys in order
-        counts = kept.sum(1).reshape(rows, ROW_THREADS)
-        first = (np.cumsum(counts, 1) - counts).reshape(-1)
-        slot = first[:, None] + np.cumsum(kept, 1) - 1
-        rowcnt[gi] = counts.sum(1)
-        th, i = np.nonzero(kept & (slot < k_slots))
-        t = t0[th] + i
-        r_lo, r_hi = strand_key(strands_at(words, t, window), mask.lo,
-                                mask.hi)
-        dst = th // ROW_THREADS * k_slots + slot[th, i]
-        key = [r_lo & u(M32), r_lo >> u(32), r_hi & u(M32), r_hi >> u(32)]
-        for q in range(out_words):
-            out[q, gi, dst] = key[q].astype(np.uint32)
-    return out, rowcnt
+        bits = np.array([thread_valid(brow, int(rid0[gi]), int(vlen[gi]), n,
+                                      t * C, window)
+                         for t in range(threads)], np.int64)
+        valid = (bits[:, None] >> np.arange(C)) & 1 == 1
+        out, rowcnt = compact_rows_model(
+            Words(packed[gi].astype(np.uint32)), valid, mask, salt,
+            window=window, scale=scale, variant=variant, k_slots=k_slots,
+            out_words=out_words)
+        outs.append(out)
+        counts.append(rowcnt)
+    return np.stack(outs, 1), np.stack(counts)
 
 
 def raw_inputs(rng, g, n, k, real, rid0, short):
@@ -399,6 +430,275 @@ def test_k7_model_matches_plain(n, k, real, rid0, short, window, kk, scale,
     np.testing.assert_array_equal(got[0], want[0].numpy().view(np.uint32))
     np.testing.assert_array_equal(got[1], want[1].numpy())
     assert int(got[1].sum()) > 0
+
+
+# --- K1 and K11: the run-id plane through a warp's slab ----------------------
+
+def slab_index(e, c=C):
+    """RunPlane's slab index of element e for threads of c windows."""
+    return e + e // c
+
+
+def slab_ints(c=C):
+    return slab_index(32 * c + 63 - 1, c) + 1
+
+
+def plane_valid_words(rid_row: np.ndarray, threads: int, window: int,
+                      c=C) -> np.ndarray:
+    """RunPlane.valid_word of `threads` threads (a multiple of 32) of c
+    windows over one genome's plane: each warp stages rid[w0 .. w0 + 32 c
+    - 1 + w - 1] (-1 at or past n) into its slab at slab_index(e), then
+    lane L reads rid[t] and rid[t + w - 1] of its windows t = w0 + c L + i
+    from the slab.  Returns (threads, c) bool; asserts every read was
+    staged and that the slab returns the plane's values."""
+    n = rid_row.size
+    warps, ww = threads // 32, 32 * c
+    span = ww + window - 1
+    e = np.arange(span)
+    t = np.arange(warps)[:, None] * ww + e                    # (warps, span)
+    full = np.full(warps * ww + 64, -1, np.int64)
+    full[:n] = rid_row
+    slab = np.full((warps, slab_ints(c)), 1 << 40, np.int64)  # unstaged
+    slab[:, slab_index(e, c)] = full[t]
+    a = np.arange(32)[:, None] * c + np.arange(c)             # (lane, i)
+    ra = slab[:, slab_index(a, c)]
+    rb = slab[:, slab_index(a + window - 1, c)]
+    assert (ra < 1 << 40).all() and (rb < 1 << 40).all()
+    tw = np.arange(warps)[:, None, None] * ww + a
+    np.testing.assert_array_equal(ra, full[tw])
+    np.testing.assert_array_equal(rb, full[tw + window - 1])
+    return ((ra >= 0) & (ra == rb)).reshape(threads, c)
+
+
+def worst_bank_conflict(indices: np.ndarray) -> int:
+    """The most lanes of one step that share a bank (1: none share)."""
+    return int(np.bincount(np.asarray(indices) % 32).max())
+
+
+@pytest.mark.parametrize("c", [C, EMIT_C])
+@pytest.mark.parametrize("window", [1, 20, 33, 64])
+def test_slab_banks_are_distinct_and_the_slab_returns_the_plane(window, c):
+    """At every step of the reads the 32 lanes touch 32 distinct banks
+    (the staging stores too at 32 windows a thread; at most two lanes a
+    bank at 8); the slab holds every index a read needs; and the validity
+    it gives is rid[t] == rid[t + w - 1] >= 0 on the plane."""
+    lanes = np.arange(32)
+    span = 32 * c + window - 1
+    for k in range(-(-span // 32)):
+        e = 32 * k + lanes
+        assert worst_bank_conflict(slab_index(e[e < span], c)) <= (
+            1 if c == C else 2)
+    for i in range(c):
+        for off in (0, window - 1):
+            assert worst_bank_conflict(slab_index(c * lanes + i + off,
+                                                  c)) == 1, (i, off)
+    assert slab_index(span - 1, c) < slab_ints(c)
+    assert slab_ints(C) == 1120 and slab_ints(EMIT_C) == 358
+    rng = np.random.default_rng(window)
+    n = 3 * 32 * c + 77
+    rid = rng.integers(-1, 3, n)
+    rid[rng.random(n) < 0.5] = 1                 # some long runs
+    got = plane_valid_words(rid, 4 * 32, window, c)
+    full = np.full(4 * 32 * c + window, -1, np.int64)
+    full[:n] = rid
+    t = np.arange(4 * 32 * c)
+    want = (full[t] >= 0) & (full[t] == full[t + window - 1])
+    np.testing.assert_array_equal(got.reshape(-1), want)
+
+
+def hard_plane(rng, g: int, n: int) -> np.ndarray:
+    """(G, n) int32 run ids that no sorted-bounds form can give: runs of
+    1-300 positions whose ids repeat out of order, -1 holes inside the
+    genome, single-position runs, and a tail of -1 past a random end."""
+    rid = np.empty((g, n), np.int32)
+    for gi in range(g):
+        pos = 0
+        while pos < n:
+            ln = int(rng.integers(1, 300)) if rng.random() > 0.1 else 1
+            rid[gi, pos:pos + ln] = int(rng.integers(-1, 6))
+            pos += ln
+        rid[gi, n - int(rng.integers(0, 200)):] = -1
+    return rid
+
+
+def k1_model(packed, rid, mask_words, salt, *, window, nw, scale, variant,
+             k_slots, out_words):
+    """K1 as its kernel computes it: each genome row (or, in seed-batch
+    mode, each seed over genome row 0) with the run-id plane's validity
+    through the warp slab, then K7's rows."""
+    g = packed.shape[0]
+    threads = extract.out_rows(nw) * ROW_THREADS
+    seeds = np.asarray(mask_words, dtype=np.uint64)
+    if seeds.ndim == 1:
+        jobs = [(gi, seeds, salt) for gi in range(g)]
+    else:
+        jobs = [(0, m, sv) for m, sv in zip(seeds, salt)]
+    outs, counts = [], []
+    for gi, mw, sv in jobs:
+        mask = Mask(mw)
+        valid = plane_valid_words(rid[gi].astype(np.int64), threads, window)
+        out, rowcnt = compact_rows_model(
+            Words(packed[gi].astype(np.uint32)), valid, mask, int(sv),
+            window=window, scale=scale, variant=variant, k_slots=k_slots,
+            out_words=out_words)
+        outs.append(out)
+        counts.append(rowcnt)
+    return np.stack(outs, 1), np.stack(counts)
+
+
+class Mask:
+    """A mask's (lo, hi) 64-bit halves from its four u32 words."""
+
+    def __init__(self, words):
+        w = [int(x) for x in words]
+        self.lo, self.hi = w[0] | w[1] << 32, w[2] | w[3] << 32
+        self.words_u32 = words
+
+
+@pytest.mark.parametrize("what,n,window,k,scale,variant,slots,seeds", [
+    ("non-monotone, holes", 5000, 20, 16, 7, "modern", 0, 0),
+    ("nw odd, legacy", 4999, 33, 25, 3, "legacy", 0, 0),
+    ("ends mid-row, w 1", 128 * 30 + 37, 1, 1, 2, "modern", 0, 0),
+    ("w 64", 3001, 64, 40, 5, "modern", 0, 0),
+    ("rows overflow", 4000, 17, 12, 1, "modern", 8, 0),
+    ("seed-batch mode", 4500, 20, 16, 5, "modern", 0, 3)])
+def test_k1_model_matches_plain(what, n, window, k, scale, variant, slots,
+                                seeds):
+    """K1's plane validity from the warp slab, K7's slide and rows, held
+    to extract_compact_plain on planes that are not ascending runs, with
+    -1 holes inside a genome, a plane that ends mid-row, nw not a
+    multiple of 32 or 128, rows past k_slots and seed-batch mode."""
+    rng = np.random.default_rng(n + window)
+    g = 1 if seeds else 2
+    words = -(-n // 16) + 2
+    packed = rng.integers(0, 2 ** 32, (g, words), dtype=np.uint64
+                          ).astype(np.uint32)
+    rid = hard_plane(rng, g, n)
+    if seeds:
+        masks = [spaced_seed_mask(window, k, s) for s in range(seeds)]
+        mw = np.stack([m.words_u32 for m in masks])
+        salt = [boosthash.fmh_salt(m.lo, m.hi, window, 1, variant)
+                for m in masks]
+    else:
+        m = spaced_seed_mask(window, k, 1)
+        mw, salt = m.words_u32, boosthash.fmh_salt(m.lo, m.hi, window, 1,
+                                                   variant)
+    nw = n - window + 1
+    assert nw % 32
+    args = dict(window=window, nw=nw, scale=scale, variant=variant,
+                k_slots=slots or min(128, max(4, 4 * 128 // scale)),
+                out_words=min(4, -(-2 * window // 32)))
+    got = k1_model(packed, rid, mw, salt, **args)
+    want = extract.extract_compact_plain(
+        torch.from_numpy(packed.view(np.int32)), torch.from_numpy(rid), mw,
+        salt, **args)
+    np.testing.assert_array_equal(got[0], want[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert int(got[1].sum()) > 0
+    if slots:
+        assert int(got[1].max()) > slots
+
+
+STAGE_PLANE = slab_index(32 * EMIT_C - 1) + 1       # K11's staging
+
+
+def test_k11_staging_banks_are_distinct():
+    """K11's staging: a lane's windows e = 8 L + i written at step i, and
+    the write-out's words e = L + 32 r read at step r, each fall in 32
+    distinct banks; the plane stride leaves room for every window."""
+    lanes = np.arange(32)
+    for i in range(EMIT_C):
+        assert worst_bank_conflict(slab_index(EMIT_C * lanes + i)) == 1
+    for r in range(EMIT_C):
+        assert worst_bank_conflict(slab_index(lanes + 32 * r)) == 1
+    assert slab_index(32 * EMIT_C - 1) < STAGE_PLANE == 263
+
+
+class Memory:
+    """A flat output buffer that counts the writes of each element."""
+
+    def __init__(self, size: int):
+        self.v = np.zeros(size, np.int64)
+        self.writes = np.zeros(size, np.int64)
+
+    def store(self, at, values):
+        self.v[at] = values
+        np.add.at(self.writes, at, 1)
+
+
+def k11_model(codes, rid, mask, salt, *, window, scale, variant):
+    """K11 as its kernel computes it: threads of 8 windows, every window's
+    key slid from t0, the plane's validity through the warp slab, the
+    valid windows hashed and filtered; each warp stages its keys at
+    slab_index(e) and writes them out with lane L on windows w0 + L + 32 r
+    (r < 8), the keep bytes from the kept masks of lanes e // 8 (a
+    shuffle).  Returns (canon (4, G, nw) uint32, keep (G, nw) bool);
+    asserts every output element was written once."""
+    g, n = codes.shape
+    nw = n - window + 1
+    c = EMIT_C
+    threads = -(-(-(-nw // c)) // 256) * 256    # ceil(nw / 8) in 256-blocks
+    canon = Memory(4 * g * nw)
+    keep = Memory(g * nw)
+    lanes = np.arange(32)
+    for y in range(g):
+        packed = extract.pack2bit(codes[y].astype(np.uint8), -(-n // 16))
+        words = Words(packed.astype(np.uint32))
+        t0 = np.arange(threads, dtype=np.int64) * c
+        lo, hi = thread_keys(words, t0, window, mask, c)
+        valid = plane_valid_words(rid[y].astype(np.int64), threads, window, c)
+        hashed = boosthash.hash_bitset128(lo[valid], hi[valid],
+                                          variant) ^ u(salt)
+        kept = np.zeros_like(valid)
+        kept[valid] = model_mod(hashed, scale) == 0
+        kept[t0 >= nw] = False                # threads past nw slide nothing
+        key = [lo & u(M32), lo >> u(32), hi & u(M32), hi >> u(32)]
+        masks = (kept.astype(np.int64) << np.arange(c)).sum(1)
+        for w in range(threads // 32):
+            w0 = w * 32 * c
+            stage = np.full((4, STAGE_PLANE), -1, np.int64)
+            e = (lanes[:, None] * c + np.arange(c)).reshape(-1)
+            for q in range(4):
+                stage[q, slab_index(e)] = key[q][32 * w:32 * (w + 1)].reshape(
+                    -1)
+            for r in range(c):
+                e = lanes + 32 * r
+                t = w0 + e
+                inr = t < nw
+                for q in range(4):
+                    canon.store((q * g + y) * nw + t[inr],
+                                stage[q, slab_index(e[inr])])
+                bits = masks[32 * w + e // c]            # __shfl_sync
+                keep.store(y * nw + t[inr], (bits[inr] >> (e[inr] % c)) & 1)
+    assert (canon.writes == 1).all() and (keep.writes == 1).all()
+    return (canon.v.astype(np.uint32).reshape(4, g, nw),
+            keep.v.reshape(g, nw) == 1)
+
+
+@pytest.mark.parametrize("n,window,k,scale,variant", [
+    (3000, 20, 16, 3, "modern"), (3001, 33, 25, 3, "legacy"),
+    (3000, 64, 40, 3, "modern"), (1001, 1, 1, 1, "modern")])
+def test_k11_model_matches_plain(n, window, k, scale, variant):
+    """K11's every-window keys, slab validity, staged key write-out and
+    keep bytes, held to extract_filter_plain at G = 5 with nw odd, so a
+    row ends inside a warp's 256 windows and rows start at every offset
+    from 16-byte alignment."""
+    rng = np.random.default_rng(n * window)
+    g = 5
+    codes = rng.integers(0, 4, (g, n)).astype(np.uint8)
+    rid = hard_plane(rng, g, n)
+    nw = n - window + 1
+    assert nw % 2 == 1
+    mask = spaced_seed_mask(window, k, 2)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, variant)
+    got = k11_model(codes, rid, mask, salt, window=window, scale=scale,
+                    variant=variant)
+    want = extract.extract_filter_plain(
+        torch.from_numpy(codes.astype(np.int64)), torch.from_numpy(rid),
+        mask.words_u32, salt, window=window, scale=scale, variant=variant)
+    np.testing.assert_array_equal(got[0], want[0].numpy().view(np.uint32))
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert got[1].any()
 
 
 # --- K4: register tiles, the block's merge levels, K5's levels ---------------
