@@ -60,7 +60,11 @@ K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
 shape (8 seeds over one genome, n = 2^23): K1's against its plain version
 and 8 single-seed launches, K7's (phase 9's launch) over the compact
 upload of the same genome against its plain version and K1's output;
-K11 at n = 2^23; K8 at _finish_runs shapes and K9 at tiled shapes.
+K11 at n = 2^23; K8 (register tiles that stop at the run and store odd
+runs reversed, K5's levels above 4,096) at _finish_runs shapes (8 rows of
+2 runs of 2,048: one launch; 1 row of 8 runs of 32,768) and K9 (a sort
+that keeps each tile's cut and never merges what the cut drops) at tiled
+shapes (4 tiles at capacity 2,048, 16 at 8,192), each timed at both.
 Every sketch of phases 3-5 and 7 must equal the native C++ scalar
 pipeline's (native/sketchlib.cpp) and every CSV value the host math on
 native intersections of those sketches; phase 6's matrix must have the
@@ -83,7 +87,7 @@ every pw instance, from cuobjdump -sass).
 The extract kernels' compiled code (the five instances of slide_kernel:
 K1, K7 and K11, K1's and K7's seed-batch modes) must hold no CALL (the
 64-bit division routine: the filter is a multiply-high), and the build's
--Xptxas=-v registers and spills of those instances and of K4's kernels
+-Xptxas=-v registers and spills of those instances and of the sorts' kernels
 are printed.
 
 Output: the card's name and power limit, a JSON line of per-kernel results
@@ -92,11 +96,13 @@ torch.sort-yardstick times, and the bound from the kernel's bytes or, for
 K1, K7 and K11, the instructions a window cannot skip at its timed shape
 (the slide, the select, the hash and the filter, counted from probes'
 compiled code with cuobjdump), for K6 its int8 tensor operations on the
-runs it keeps; for K4, K5, K9 and K10 also the device launches of one
-call, from torch.profiler; K1, K2, K3, K6 and K11 their device time
-from torch.profiler beside the CUDA-event time, which also holds the
-wrapper's host time; K4 its device time by kernel, its grids and its
-time at kw 1-4; K7 its seed-batch launch; K6 at both its timed shapes,
+runs it keeps; for K4, K5, K8, K9 and K10 also the device launches of
+one call, from torch.profiler; K1, K2, K3, K6, K8, K9 and K11 their device
+time from torch.profiler beside the CUDA-event time, which also holds the
+wrapper's host time (K8 and K9 at both their timed shapes; a device time
+or launch count is null where the profiler recorded no kernel event in
+three tries); K4 its device time by kernel, its grids and its time at kw
+1-4; K7 its seed-batch launch; K6 at both its timed shapes,
 K3 with the grids the profiler recorded), a line of the profiled sums of
 K4, K7, K2, K5, K10, K6 and K3 over phases 6, 7 and 8(b) with the bytes
 of K2 and K3 on those paths and K4's launches by grid in 8(b), and as
@@ -286,18 +292,28 @@ def profile_kernels(fn) -> dict:
     return _kernel_sums(_profiled(fn))
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, tries: int = 3) -> float | None:
     """Device time of one fn() call: the port's kernels' summed device time
-    over `reps` calls under torch.profiler, over reps.  Where the host is
-    slower than the kernels, time_ms measures the host's launch rate and
-    this the kernels."""
-    return sum(ms for ms, _ in profile_kernels(
-        lambda: [fn() for _ in range(reps)]).values()) / reps
+    over `reps` calls under torch.profiler, over reps, profiled again, up
+    to `tries` times, while the profiler records none; None (null in the
+    output) if it never does.  Where the host is slower than the kernels,
+    time_ms measures the host's launch rate and this the kernels."""
+    for _ in range(tries):
+        kernels = profile_kernels(lambda: [fn() for _ in range(reps)])
+        if kernels:
+            return sum(ms for ms, _ in kernels.values()) / reps
+    return None
 
 
-def device_launches(fn) -> int:
-    """Kernel launches on the device of one fn() call (torch.profiler)."""
-    return sum(n for _, n in profile_kernels(fn).values())
+def device_launches(fn, tries: int = 3) -> int | None:
+    """Kernel launches on the device of one fn() call (torch.profiler),
+    profiled again, up to `tries` times, while the profiler records none
+    (it drops a run's events now and then); None if it never does."""
+    for _ in range(tries):
+        n = sum(n for _, n in profile_kernels(fn).values())
+        if n:
+            return n
+    return None
 
 
 def kernel_grids(fn, names) -> dict:
@@ -516,11 +532,11 @@ def no_division_calls(so: pathlib.Path) -> dict:
 
 
 def kernel_label(name: str):
-    """ptxas_usage's label of a kernel: its extract instance, K4's two
-    kernels by name, else None."""
+    """ptxas_usage's label of a kernel: its extract instance, the sorts'
+    kernels (K4's, K8's and K9's) by name, else None."""
     return extract_instance(name) or next(
-        (k for k in ("reg_tile_sort_kernel", "sort_level_kernel")
-         if k in name), None)
+        (k for k in ("reg_tile_sort_kernel", "sort_level_kernel",
+                     "cut_merge_kernel") if k in name), None)
 
 
 def ptxas_usage(so: pathlib.Path, label=kernel_label) -> dict:
@@ -938,7 +954,7 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
     def keys(shape):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, dtype=torch.int32,
                              device=dev)
-    err = 0
+    err, shapes = 0, []
     for i, (g, runs, run) in enumerate([(8, 2, 2048), (1, 8, 32768)]):
         z = keys((2, g, runs * run))
         z[:, :, ::7] = z[:, :, 1:2]
@@ -946,17 +962,24 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
         e = max_abs_err([sort.sort_runs(z, run)],
                         [sort.sort_runs_plain(z, run)])
         err = max(err, e)
-        print(f"K8 kw=2 G={g} {runs} runs of {run}: max_abs_err={e}")
+        shapes.append(dict(
+            shape=[2, g, runs, run], max_abs_err=e,
+            ms=timer(lambda: sort.sort_runs(z, run), 20),
+            device_ms=device_ms(lambda: sort.sort_runs(z, run), 20),
+            device_launches=device_launches(lambda: sort.sort_runs(z, run))))
+        print(f"K8 kw=2 G={g} {runs} runs of {run}: max_abs_err={e}; "
+              f"{json.dumps(shapes[-1])}")
         if i == 0:
             key64 = sort_key64(z).reshape(g * runs, run)
             res["K8"] = dict(
-                ms=timer(lambda: sort.sort_runs(z, run), 20),
+                ms=shapes[-1]["ms"], device_ms=shapes[-1]["device_ms"],
+                device_launches=shapes[-1]["device_launches"],
                 plain_ms=timer(lambda: sort.sort_runs_plain(z, run), 5),
                 library_ms=timer(lambda: torch.sort(key64, dim=-1), 20),
                 **bound(2 * nbytes(z)))
-    res["K8"]["max_abs_err"] = err
+    res["K8"].update(max_abs_err=err, timed_shapes=shapes)
 
-    err = 0
+    err, shapes = 0, []
     for i, (t, cap) in enumerate([(4, 2048), (16, 8192)]):
         z = torch.full((2, 1, t * sort.TILE), -1, dtype=torch.int32,
                        device=dev)
@@ -965,18 +988,24 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
         got = sort.sort_truncate(z, cap)
         e = max_abs_err([got], [sort.sort_truncate_plain(z, cap)])
         err = max(err, e)
+        shapes.append(dict(
+            shape=[2, 1, t, cap], max_abs_err=e,
+            ms=timer(lambda: sort.sort_truncate(z, cap), 20),
+            device_ms=device_ms(lambda: sort.sort_truncate(z, cap), 20),
+            device_launches=device_launches(
+                lambda: sort.sort_truncate(z, cap))))
         print(f"K9 kw=2 {t} tiles of {sort.TILE}, capacity {cap}, "
-              f"{int(hit.sum())} valid keys: max_abs_err={e}")
+              f"{int(hit.sum())} valid keys: max_abs_err={e}; "
+              f"{json.dumps(shapes[-1])}")
         if i == 0:
             key64 = sort_key64(z)
             res["K9"] = dict(
-                ms=timer(lambda: sort.sort_truncate(z, cap), 20),
-                device_launches=device_launches(
-                    lambda: sort.sort_truncate(z, cap)),
+                ms=shapes[-1]["ms"], device_ms=shapes[-1]["device_ms"],
+                device_launches=shapes[-1]["device_launches"],
                 plain_ms=timer(lambda: sort.sort_truncate_plain(z, cap), 5),
                 library_ms=timer(lambda: torch.sort(key64, dim=-1), 20),
                 **bound(nbytes(z, got)))
-    res["K9"]["max_abs_err"] = err
+    res["K9"].update(max_abs_err=err, timed_shapes=shapes)
     for name, r in res.items():
         need(r["max_abs_err"] <= TOLERANCE,
              f"{name} disagrees with its plain version: {r}")
@@ -2107,10 +2136,15 @@ def main(argv=None) -> int:
                                device=r["device"])
         if key == "K7":
             kernels[-1].update(seed_batch=kres["K7 seeds"])
-        if key in ("K5", "K9", "K10"):
+        if key in ("K5", "K10"):
             kernels[-1].update(
                 device_launches_per_call=r["device_launches"],
                 fraction_of_bound=r["bound_ms"] / r["ms"])
+        if key in ("K8", "K9"):
+            kernels[-1].update(
+                device_launches_per_call=r["device_launches"],
+                fraction_of_bound=r["bound_ms"] / r["ms"],
+                device_ms=r["device_ms"], timed_shapes=r["timed_shapes"])
         if key == "K6":
             kernels[-1].update(device_ms=r["device_ms"],
                                timed_shapes=r["timed_shapes"],

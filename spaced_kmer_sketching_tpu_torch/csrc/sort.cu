@@ -1,8 +1,8 @@
-// K4: batched lexicographic ascending sort of multi-word keys (a register
-// tile sort, then K5's merge levels), K8: the same sort with alternating
-// run directions (a bitonic network), K5 / K10: merge-path merges of
-// ascending runs, and K9: tile sorts cut to a share and merged by K5 (the
-// second half of this file).
+// K4: batched lexicographic ascending sort of multi-word keys, K8: the same
+// sort of every run of a row with odd runs stored descending, K9: a sort
+// that keeps each 32,768-entry tile's share of a capacity and merges the
+// shares, all on one machinery (a register tile sort, then merge-path
+// levels); K5 / K10: merge-path merges of ascending runs.
 //
 // K4 replaces spaced_kmer_sketching_tpu/ops/pallas/sort.py::bitonic_sort_128
 // (kernels _sort_kernel, _tile_sort_kernel, _merge_round_kernel,
@@ -19,185 +19,31 @@
 //     compile-time constants; then the block merges its threads' runs by
 //     merge path, log2(threads) levels, each thread finding its diagonal
 //     and merging its E outputs in registers between two barriers;
-//   * a row of N > T then takes K5's merge levels (merge_level, launched
+//   * a row of N > T then takes K5's merge levels (merge_pairs, launched
 //     as sort_level_kernel so that a profile tells K4 from K5), log2(N / T)
 //     launches alternating between out and a scratch buffer the caller
 //     gives.
 // So N = 65,536 at G = 2 (the timed shape, quarter tiles) takes 5
-// launches at kw <= 2 where the bitonic network took 21, and a full grid of
-// rows of N <= T (phase 8(b)'s 128 x 16,384) one.
+// launches at kw <= 2, and a full grid of rows of N <= T (phase 8(b)'s
+// 128 x 16,384) one.
 //
 // What bounds it on an H100: the work inside one CTA a tile, not bytes.
 // A sort of G = 2 rows of 65,536 two-word keys moves 2.1 MB (0.6 us at
-// 3.35 TB/s); the bitonic network spent ~0.1 ms on it in 21 launches, 66
-// shared-memory passes a tile each ending in a block barrier.  The
-// register network compares without barriers and a merge level costs one
-// barrier pair for E outputs a thread, but each of the ten in-block
-// levels still issues ~35 instructions and ~2 scattered shared-memory
-// reads a key (the diagonal search, the serial merge), so one 16,384-key
-// tile takes ~60 us in its CTA.  On an H100 80GB HBM3 at 700 W: phase
-// 8(b)'s 128 x 16,384 (128 CTAs) 0.066 ms a call on the device, ~9 ms
-// over its 119 calls, from ~34; the timed shape 0.072 ms with 8 tiles of
-// 16,384 (8 SMs busy) and 0.044 with 32 quarter tiles and four K5 levels,
-// which sort_tile therefore picks (PERF.md).
+// 3.35 TB/s).  The register network compares without barriers and a merge
+// level costs one barrier pair for E outputs a thread, but each of the ten
+// in-block levels still issues ~35 instructions and ~2 scattered
+// shared-memory reads a key (the diagonal search, the serial merge), so
+// one 16,384-key tile takes ~60 us in its CTA.  On an H100 80GB HBM3 at
+// 700 W: phase 8(b)'s 128 x 16,384 (128 CTAs) 0.066 ms a call on the
+// device, ~9 ms over its 119 calls; the timed shape 0.072 ms with 8 tiles
+// of 16,384 (8 SMs busy) and 0.044 with 32 quarter tiles and four K5
+// levels, which sort_tile therefore picks (PERF.md).
 #include "common.cuh"
 
 namespace sks {
 namespace {
 
-// K8's bitonic network (alt > 0 below; see K8's note further down):
-//   * tile_sort: one block sorts a 2048-key tile in shared memory through
-//     every stage up to the tile size;
-//   * for each larger stage k: one global pass per distance j >= 2048 (one
-//     thread per compare-exchange pair, in device memory), then tile_merge
-//     finishes distances 1024..1 in shared memory.
-// Tiles never cross runs (the tile divides the run), and the direction of
-// a pair is fixed by its index, so all runs sort in one launch per pass.
-constexpr int SORT_THREADS = 1024;
-constexpr int TILE = 2 * SORT_THREADS;   // keys per shared-memory tile
-constexpr int PASS_THREADS = 256;
 constexpr int64_t TRUNC_TILE = 32768;    // K9's tile (the JAX TILE_ELEMS)
-
-template <int KW>
-__device__ __forceinline__ void exchange_smem(uint32_t* sm, int tile, int i,
-                                              int p, bool asc) {
-  uint32_t a[KW], b[KW];
-#pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    a[q] = sm[q * tile + i];
-    b[q] = sm[q * tile + p];
-  }
-  if (asc ? lex_less<KW>(b, a) : lex_less<KW>(a, b)) {
-#pragma unroll
-    for (int q = 0; q < KW; ++q) {
-      sm[q * tile + i] = b[q];
-      sm[q * tile + p] = a[q];
-    }
-  }
-}
-
-// Whether the run holding flat index i sorts descending: the runs of n
-// entries alternate ascending / descending within each segment of alt
-// runs (K8; alt == 1, or 0, makes every run ascend).
-__device__ __forceinline__ bool run_desc(int64_t i, int64_t n, int64_t alt) {
-  return alt > 0 && (((i / n) % alt) & 1);
-}
-
-// Bitonic passes at distances j0, j0/2, ..., 1 of stage `k` on the tile
-// in shared memory; local0 is the tile's first row-local index, and desc
-// inverts every comparator (the whole tile lies in one run).
-template <int KW>
-__device__ void tile_passes(uint32_t* sm, int tile, int64_t local0,
-                            int64_t k, int j0, bool desc) {
-  for (int j = j0; j > 0; j >>= 1) {
-    for (int p = threadIdx.x; p < tile / 2; p += blockDim.x) {
-      const int i = 2 * p - (p & (j - 1));
-      const bool asc = (((local0 + i) & k) == 0) != desc;
-      exchange_smem<KW>(sm, tile, i, i + j, asc);
-    }
-    __syncthreads();
-  }
-}
-
-template <int KW>
-__device__ void load_tile(uint32_t* sm, const uint32_t* src, int64_t total,
-                          int tile) {
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-#pragma unroll
-    for (int q = 0; q < KW; ++q) sm[q * tile + e] = src[q * total + e];
-  }
-  __syncthreads();
-}
-
-template <int KW>
-__device__ void store_tile(const uint32_t* sm, uint32_t* dst, int64_t total,
-                           int tile) {
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-#pragma unroll
-    for (int q = 0; q < KW; ++q) dst[q * total + e] = sm[q * tile + e];
-  }
-}
-
-template <int KW>
-__global__ void __launch_bounds__(SORT_THREADS) tile_sort_kernel(
-    const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-    int64_t total, int64_t n, int64_t alt, int tile) {
-  extern __shared__ uint32_t sm[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  load_tile<KW>(sm, in + base, total, tile);
-  const int64_t local0 = base & (n - 1);
-  const bool desc = run_desc(base, n, alt);
-  for (int k = 2; k <= tile; k <<= 1) {
-    tile_passes<KW>(sm, tile, local0, k, k >> 1, desc);
-  }
-  store_tile<KW>(sm, out + base, total, tile);
-}
-
-template <int KW>
-__global__ void __launch_bounds__(SORT_THREADS) tile_merge_kernel(
-    uint32_t* __restrict__ data, int64_t total, int64_t n, int64_t alt,
-    int64_t k, int tile) {
-  extern __shared__ uint32_t sm[];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  load_tile<KW>(sm, data + base, total, tile);
-  tile_passes<KW>(sm, tile, base & (n - 1), k, tile >> 1,
-                  run_desc(base, n, alt));
-  store_tile<KW>(sm, data + base, total, tile);
-}
-
-template <int KW>
-__global__ void global_pass_kernel(uint32_t* __restrict__ data, int64_t total,
-                                   int64_t n, int64_t alt, int64_t k,
-                                   int64_t j) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= total / 2) return;
-  const int64_t i = 2 * p - (p & (j - 1));
-  const int64_t partner = i + j;
-  const bool asc = (((i & (n - 1)) & k) == 0) != run_desc(i, n, alt);
-  uint32_t a[KW], b[KW];
-#pragma unroll
-  for (int q = 0; q < KW; ++q) {
-    a[q] = data[q * total + i];
-    b[q] = data[q * total + partner];
-  }
-  if (asc ? lex_less<KW>(b, a) : lex_less<KW>(a, b)) {
-#pragma unroll
-    for (int q = 0; q < KW; ++q) {
-      data[q * total + i] = b[q];
-      data[q * total + partner] = a[q];
-    }
-  }
-}
-
-// K8: sorts each of the g runs of n entries (n a power of two) by the
-// bitonic network; alt as run_desc's.
-template <int KW>
-int bitonic_sort_runs(const uint32_t* in, uint32_t* out, int64_t g, int64_t n,
-                      int64_t alt, cudaStream_t stream) {
-  const int64_t total = g * n;
-  const int tile = static_cast<int>(n < TILE ? n : TILE);
-  const size_t smem = sizeof(uint32_t) * KW * tile;
-  const unsigned tiles = static_cast<unsigned>(total / tile);
-  tile_sort_kernel<KW><<<tiles, SORT_THREADS, smem, stream>>>(
-      in, out, total, n, alt, tile);
-  int err = last_error();
-  const unsigned pass_blocks =
-      static_cast<unsigned>((total / 2 + PASS_THREADS - 1) / PASS_THREADS);
-  for (int64_t k = 2 * static_cast<int64_t>(tile); k <= n && !err; k <<= 1) {
-    for (int64_t j = k >> 1; j >= tile && !err; j >>= 1) {
-      global_pass_kernel<KW><<<pass_blocks, PASS_THREADS, 0, stream>>>(
-          out, total, n, alt, k, j);
-      err = last_error();
-    }
-    if (!err) {
-      tile_merge_kernel<KW><<<tiles, SORT_THREADS, smem, stream>>>(
-          out, total, n, alt, k, tile);
-      err = last_error();
-    }
-  }
-  return err;
-}
-
 
 // ---------------------------------------------------------------------------
 // K5 merge_runs: replaces spaced_kmer_sketching_tpu/ops/pallas/sort.py::
@@ -225,7 +71,9 @@ int bitonic_sort_runs(const uint32_t* in, uint32_t* out, int64_t g, int64_t n,
 //   * thread merge: each thread searches its own diagonal in shared
 //     memory, then merges its 8 outputs serially in registers;
 //   * store: outputs are staged through shared memory (padded one word in
-//     32, so the stride-8 writes hit 32 banks) and stored coalesced.
+//     32, so the stride-8 writes hit 32 banks) and stored coalesced, in
+//     descending addresses when the run they build is stored reversed
+//     (K8's last level).
 // Ties go to A everywhere (A[i] <= B[j] takes A[i]); equal entries are
 // equal in every plane, so any consistent rule gives the same bytes.
 // K10 is one launch over its 2N outputs.  K5 is one launch per merge level
@@ -247,18 +95,7 @@ int bitonic_sort_runs(const uint32_t* in, uint32_t* out, int64_t g, int64_t n,
 // issuing a thread's 8 loads before its stores did not help there.
 // Small calls are launch bound.  A 4-way merge per pass would halve K5's
 // levels: later work.
-//
-// K8 sort_runs: replaces sort.py::sort_runs_128 (:220; kernels
-// _multi_run_sort_kernel :189 and, for odd run layouts, _tile_sort :172).
-// It is the bitonic network above with every comparator of an odd run (by
-// its index within the row) inverted, so odd runs come out descending; the finish
-// fallback _finish_runs (ops/sketch.py) sorts G rows of nblocks runs in
-// one launch.  K9 sort_truncate: replaces sort.py::sort_truncate_128
-// (:249): K4's sort of every 32,768-entry tile (register tiles and one or
-// two K5 levels), one pass that keeps each tile's capacity / t smallest
-// entries, then K5's merge of those runs inside each row's capacity-entry
-// segment.  What bounds both: bytes (each pass reads and writes every
-// entry), and at the finish's small shapes launch latency.
+
 
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_E = 8;                              // outputs a thread
@@ -380,8 +217,10 @@ __device__ __forceinline__ void merge_thread(const uint32_t* sm, int plane,
 }
 
 // Writes outputs [d0, d0 + tile) of merge(A, B) to out[0, tile) (plane
-// stride out_plane); B's valid entries are read with `off` added.
-template <int PW>
+// stride out_plane), or with REV to out[0], out[-1], ..., out[1 - tile]:
+// a warp's lanes then store consecutive words in descending order, still
+// whole lines.  B's valid entries are read with `off` added.
+template <int PW, bool REV = false>
 __device__ void merge_path_tile(uint32_t* sm, const uint32_t* a,
                                 int64_t plane_a, int64_t na,
                                 const uint32_t* b, int64_t plane_b,
@@ -424,21 +263,40 @@ __device__ void merge_path_tile(uint32_t* sm, const uint32_t* a,
   for (int e = threadIdx.x; e < tile; e += MERGE_THREADS) {
 #pragma unroll
     for (int q = 0; q < PW; ++q) {
-      out[q * out_plane + e] = sm[q * MERGE_PLANE + spad(e)];
+      out[q * out_plane + (REV ? -e : e)] = sm[q * MERGE_PLANE + spad(e)];
     }
   }
 }
 
-// One K5 level: pairs of ascending runs of `run` entries (2 * run a
-// multiple of MERGE_TILE), one MERGE_TILE of outputs per CTA.
-template <int PW>
-__device__ __forceinline__ void merge_level(uint32_t* sm, const uint32_t* in,
-                                            uint32_t* out, int64_t total,
-                                            int64_t run) {
+// One merge level: pair p of ascending runs of `run` entries (in[2p run,
+// (2p + 2) run), plane stride total_in) gives its first outlen outputs
+// (outlen <= 2 run, a power of two >= MERGE_TILE) at out[p outlen] (plane
+// stride total_out), MERGE_TILE outputs a CTA.  K5's and K4's levels keep
+// all 2 run; K9's are cut to its share, since the first outlen outputs of
+// a merge only read the first outlen entries of each run.  With REV the
+// pairs odd within their row (rows of alt pairs) are stored reversed: K8's
+// last level.
+template <int PW, bool REV>
+__device__ __forceinline__ void merge_pairs(uint32_t* sm, const uint32_t* in,
+                                            uint32_t* out, int64_t total_in,
+                                            int64_t total_out, int64_t run,
+                                            int64_t outlen, int64_t alt) {
   const int64_t o0 = static_cast<int64_t>(blockIdx.x) * MERGE_TILE;
-  const int64_t base = o0 & ~(2 * run - 1);
-  merge_path_tile<PW>(sm, in + base, total, run, in + base + run, total, run,
-                      0, o0 - base, MERGE_TILE, out + o0, total);
+  const int64_t obase = o0 & ~(outlen - 1);      // the pair's first output
+  const int64_t d0 = o0 - obase;
+  // the pair's first input: obase * (2 run / outlen), both powers of two
+  const uint32_t* a = in + (obase << (__ffsll(2 * run) - __ffsll(outlen)));
+  if constexpr (REV) {
+    const auto pair = static_cast<uint32_t>(obase >> (__ffsll(outlen) - 1));
+    if ((pair % static_cast<uint32_t>(alt)) & 1) {
+      merge_path_tile<PW, true>(sm, a, total_in, run, a + run, total_in, run,
+                                0, d0, MERGE_TILE,
+                                out + obase + (outlen - 1 - d0), total_out);
+      return;
+    }
+  }
+  merge_path_tile<PW>(sm, a, total_in, run, a + run, total_in, run, 0, d0,
+                      MERGE_TILE, out + o0, total_out);
 }
 
 template <int PW>
@@ -446,17 +304,18 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_level_kernel(
     const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     int64_t total, int64_t run) {
   extern __shared__ uint32_t sm[];
-  merge_level<PW>(sm, in, out, total, run);
+  merge_pairs<PW, false>(sm, in, out, total, total, run, 2 * run, 0);
 }
 
-// The same level for K4's rows longer than its tile, under its own name so
-// that a profile tells K4's time from K5's.
-template <int PW>
+// The same level for the register tiles' sorts (K4, K8, K9), under its own
+// name so that a profile tells them from K5.
+template <int PW, bool REV>
 __global__ void __launch_bounds__(MERGE_THREADS) sort_level_kernel(
     const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-    int64_t total, int64_t run) {
+    int64_t total_in, int64_t total_out, int64_t run, int64_t outlen,
+    int64_t alt) {
   extern __shared__ uint32_t sm[];
-  merge_level<PW>(sm, in, out, total, run);
+  merge_pairs<PW, REV>(sm, in, out, total_in, total_out, run, outlen, alt);
 }
 
 // K10: the merge of a and b (half entries each, b shifted by off), `tile`
@@ -533,10 +392,6 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_runs_smem_kernel(
   }
 }
 
-inline unsigned pass_blocks(int64_t pairs) {
-  return static_cast<unsigned>((pairs + PASS_THREADS - 1) / PASS_THREADS);
-}
-
 bool pow2(int64_t x) { return x > 0 && (x & (x - 1)) == 0; }
 
 // The launches merge_runs makes: one for the shared-memory levels (when
@@ -599,7 +454,55 @@ int merge_pair(const uint32_t* a, const uint32_t* b, uint32_t* out,
 }
 
 // ---------------------------------------------------------------------------
-// K4's register tile sort (the file's header describes the design).
+// The register tile sort of K4, K8 and K9 (the file's header describes K4).
+//
+// K8 sort_runs: replaces sort.py::sort_runs_128 (:220; kernels
+// _multi_run_sort_kernel :189 and, for odd run layouts, _tile_sort :172).
+// Every run of a row (a power of two of 128 or more entries) is sorted
+// ascending on the register tiles, and the last step that writes a run
+// writes it reversed when the run is odd by its index within the row:
+//   * runs <= 4,096: one launch.  A CTA sorts a tile of 2,048 entries (256
+//     threads; 4,096 and 512 threads at runs of 4,096) holding whole runs,
+//     its merge levels stopping at the run, and stores odd runs reversed.
+//     A last tile past the rows' end is padded with sentinels, which form
+//     whole runs of their own and are not stored;
+//   * longer runs: 4,096-entry tiles, then K5's levels (sort_level_kernel)
+//     up to the run, the last storing odd runs reversed through
+//     merge_path_tile's staged write-out.  Runs of 32,768: 4 launches.
+// A reversed run still stores coalesced: a warp's lanes write consecutive
+// words in descending order.
+//
+// K9 sort_truncate: replaces sort.py::sort_truncate_128 (:249).  Per row,
+// each 32,768-entry tile keeps its cut = capacity / t smallest entries, and
+// the t cuts are merged.  It rests on one fact: the first cut outputs of
+// merge(A, B) are those of merge(A[:cut], B[:cut]), so no step past the
+// cut needs more than cut entries of any run:
+//   1. register tiles of 4,096 entries: a tile's valid keys move to its
+//      front and only the smallest power of two that holds them is sorted
+//      (a tile of sparse candidates takes a few levels), by levels that
+//      keep only a pair's first min(cut, 2 len) outputs, packed, once
+//      2 len > cut (a thread whose outputs lie past the cut skips the
+//      level); each CTA writes its first min(cut, 4,096) entries;
+//   2. the 8 pieces of each 32,768-entry tile merged to its first cut
+//      entries: K5's levels cut to the share (sort_level_kernel) while a
+//      tile's pieces overflow a CTA's shared memory (cut >= 2,048), then
+//      cut_merge_kernel, one CTA a tile, every level in shared memory.  The
+//      last launch writes the packed (kw, G, capacity) layout;
+//   3. each row's t cuts merged: cut_merge_kernel when a row's capacity
+//      fits a CTA (<= 8,192), else K5's merge_runs.
+// So capacity 2,048 at t = 4 and 8,192 at t = 16 take 3 launches, and
+// nothing is sorted that a cut drops: step 1 reads the input once and
+// writes an eighth of it at cut 512.
+//
+// The tiles of K8 and K9 hold 8 keys a thread (K4 holds 16 at kw <= 2), so
+// a level's serial merge is 8 steps: 4 or 16 keys a thread, tiles of
+// 2,048 for K9, and a warp start (each warp's 256 keys merged by shuffles
+// before the block's levels) measured no faster on an H100 (PERF.md,
+// section 6; the port's tools/time_run_tiles.py times the variants).
+// What bounds both kernels at the finish's shapes: the latency of their
+// serial levels, ~1.2 us each in a CTA, and of each launch (their byte
+// bounds lie far below one launch's), so the design counts launches and
+// levels.
 
 constexpr int TILE_THREADS = 1024;
 
@@ -608,6 +511,25 @@ template <int KW>
 constexpr int TILE_E = KW <= 2 ? 16 : 8;
 template <int KW>
 constexpr int TILE_KEYS = TILE_THREADS * TILE_E<KW>;
+
+// K8's and K9's keys a thread, their tile, and K8's tile at runs up to
+// RUN_TILE_MIN.  A build may set them with -D (build.build's `defines`),
+// as tools/time_run_tiles.py does to time variants.
+#ifndef SKS_RUN_E
+#define SKS_RUN_E 8
+#endif
+#ifndef SKS_RUN_TILE
+#define SKS_RUN_TILE 4096
+#endif
+#ifndef SKS_RUN_TILE_MIN
+#define SKS_RUN_TILE_MIN 2048
+#endif
+constexpr int RUN_E = SKS_RUN_E;
+constexpr int RUN_TILE = SKS_RUN_TILE;
+constexpr int RUN_TILE_MIN = SKS_RUN_TILE_MIN;
+constexpr int RUN_THREADS = RUN_TILE / RUN_E;
+constexpr int CUT_THREADS = 1024;                 // cut_merge_kernel's most
+constexpr int CUT_KEYS = CUT_THREADS * MERGE_E;   // and its 8,192 entries
 
 // Orders a and b: a <= b if up, else a >= b.
 template <int KW>
@@ -626,8 +548,8 @@ __device__ __forceinline__ void compare_swap(uint32_t (&a)[KW],
 // loops unroll fully, so every index is a compile-time constant.
 template <int KW, int E>
 __device__ __forceinline__ void register_sort(uint32_t (&key)[E][KW]) {
-  constexpr int LOG_E = E == 32 ? 5 : (E == 16 ? 4 : 3);
-  static_assert(1 << LOG_E == E, "E must be 8, 16 or 32");
+  constexpr int LOG_E = E == 32 ? 5 : E == 16 ? 4 : E == 8 ? 3 : 2;
+  static_assert(1 << LOG_E == E, "E must be 4, 8, 16 or 32");
 #pragma unroll
   for (int s = 1; s <= LOG_E; ++s) {
 #pragma unroll
@@ -641,15 +563,68 @@ __device__ __forceinline__ void register_sort(uint32_t (&key)[E][KW]) {
   }
 }
 
+// The block's merge levels over `pieces` ascending pieces of len entries,
+// packed in shared memory (padded one word in 32, so a thread's stride-E
+// reads and writes hit 32 banks; plane stride `plane`): each level merges
+// pairs of pieces by merge path, E outputs a thread at threadIdx.x * E,
+// each thread finding its diagonal and merging its outputs in registers
+// between two barriers.  With CUT a pair keeps only its first min(cut,
+// 2 len) outputs, stored packed, and a thread whose outputs lie past them
+// skips the level.  Ends with one piece; returns its length.
+template <int KW, int E, bool CUT>
+__device__ __forceinline__ int block_levels(uint32_t* sm, int plane, int len,
+                                            int pieces, int cut) {
+  const int e0 = threadIdx.x * E;
+  uint32_t key[E][KW];
+  for (; pieces > 1; pieces >>= 1) {
+    int outlen = 2 * len, pair, d0;
+    bool active = true;
+    if constexpr (CUT) {
+      outlen = cut < outlen ? cut : outlen;
+      active = e0 < (pieces >> 1) * outlen;
+      d0 = e0 & (outlen - 1);
+      pair = (e0 - d0) / outlen * 2 * len;
+    } else {
+      pair = e0 & ~(2 * len - 1);
+      d0 = e0 - pair;
+    }
+    // a pair never crosses a multiple of 32 that it does not start at, so
+    // spad of the pair's start plus spad of an index within it is spad of
+    // their sum
+    if (active) {
+      merge_thread<KW, E>(sm + spad(pair), plane, len, len, d0, E, key);
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) smem_store<KW>(sm, plane, e0 + i, key[i]);
+    }
+    __syncthreads();
+    len = outlen;
+  }
+  return len;
+}
+
+// What a register tile stores.
+enum class TileOut {
+  Sorted,  // K4: the tile ascending, in place
+  Runs,    // K8: each run ascending, a row's odd runs reversed (rows of
+           // alt runs; alt 0 reverses none); a last partial tile padded
+  Cut      // K9: the tile's first min(cut, tile) entries, packed
+};
+
 // One CTA sorts `tile` consecutive keys of each plane (tile / E threads):
-// E keys a thread in registers, then the block's merge-path levels in
-// shared memory (padded one word in 32, so a thread's stride-E reads and
-// writes hit 32 banks).
-template <int KW>
-__global__ void __launch_bounds__(TILE_THREADS) reg_tile_sort_kernel(
+// E keys a thread in registers, then the block's merge levels in shared
+// memory.  run: for Runs the run (levels stop there), for Cut the cut, for
+// Sorted the tile.  Cut first moves the tile's valid keys to its front (a
+// ballot scan; their order does not matter) and sorts only the smallest
+// power of two >= E that holds them: sentinels sort last, so the rest of
+// the tile is sentinels in any order, and a tile of the finish's sparse
+// candidates takes a few levels where a full one takes log2(tile / E).
+template <int KW, int E, int THREADS, TileOut OUT>
+__global__ void __launch_bounds__(THREADS) reg_tile_sort_kernel(
     const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-    int64_t total, int tile) {
-  constexpr int E = TILE_E<KW>;
+    int64_t total, int tile, int run, int64_t alt) {
   extern __shared__ uint32_t sm[];
   const int plane = tile + tile / 32;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
@@ -657,38 +632,119 @@ __global__ void __launch_bounds__(TILE_THREADS) reg_tile_sort_kernel(
   // coalesced loads, all in flight at once (tile == E * blockDim.x)
 #pragma unroll
   for (int k = 0; k < E; ++k) {
+    const int64_t i = base + threadIdx.x + k * blockDim.x;
 #pragma unroll
     for (int q = 0; q < KW; ++q) {
-      key[k][q] = in[q * total + base + threadIdx.x + k * blockDim.x];
+      if constexpr (OUT == TileOut::Runs) {
+        key[k][q] = i < total ? in[q * total + i] : SENT;
+      } else {
+        key[k][q] = in[q * total + i];
+      }
     }
   }
+  int span = tile;                               // the entries to sort
+  if constexpr (OUT == TileOut::Cut) {
+    __shared__ int wsum[129];
+    const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+    unsigned ballot[E];
 #pragma unroll
-  for (int k = 0; k < E; ++k) {
-    smem_store<KW>(sm, plane, threadIdx.x + k * blockDim.x, key[k]);
+    for (int k = 0; k < E; ++k) {
+      bool valid = false;
+#pragma unroll
+      for (int q = 0; q < KW; ++q) valid |= key[k][q] != SENT;
+      ballot[k] = __ballot_sync(FULL, valid);
+      scan_publish(k * warps + (threadIdx.x >> 5), ballot[k], wsum);
+    }
+    const int valid = scan_groups(E * warps, wsum);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      if ((ballot[k] >> lane) & 1) {
+        smem_store<KW>(sm, plane,
+                       wsum[k * warps + (threadIdx.x >> 5)] +
+                           __popc(ballot[k] & ((1u << lane) - 1)),
+                       key[k]);
+      }
+    }
+    span = valid <= E ? E : 1 << (32 - __clz(valid - 1));
+    for (int e = valid + threadIdx.x; e < span; e += blockDim.x) {
+#pragma unroll
+      for (int q = 0; q < KW; ++q) sm[q * plane + spad(e)] = SENT;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      smem_store<KW>(sm, plane, threadIdx.x + k * blockDim.x, key[k]);
+    }
   }
   __syncthreads();
   const int e0 = threadIdx.x * E;
+  if (OUT != TileOut::Cut || e0 < span) {
 #pragma unroll
-  for (int i = 0; i < E; ++i) smem_key<KW>(sm, plane, e0 + i, key[i]);
-  register_sort<KW, E>(key);
-#pragma unroll
-  for (int i = 0; i < E; ++i) smem_store<KW>(sm, plane, e0 + i, key[i]);
-  __syncthreads();
-  for (int run = E; run < tile; run <<= 1) {
-    const int pair = e0 & ~(2 * run - 1);  // a multiple of 32: spad adds
-    merge_thread<KW, E>(sm + spad(pair), plane, run, run, e0 - pair, E,
-                        key);
-    __syncthreads();
+    for (int i = 0; i < E; ++i) smem_key<KW>(sm, plane, e0 + i, key[i]);
+    register_sort<KW, E>(key);
 #pragma unroll
     for (int i = 0; i < E; ++i) smem_store<KW>(sm, plane, e0 + i, key[i]);
-    __syncthreads();
   }
+  __syncthreads();
+  const int len = block_levels<KW, E, OUT == TileOut::Cut>(
+      sm, plane, E, (OUT == TileOut::Runs ? run : span) / E, run);
+  if constexpr (OUT == TileOut::Cut) {
+    // the first min(cut, tile) entries: the sorted span, then sentinels
+    const int cut = run < tile ? run : tile;
+    const int64_t total_out = total / tile * cut;
+    for (int e = threadIdx.x; e < cut; e += blockDim.x) {
+#pragma unroll
+      for (int q = 0; q < KW; ++q) {
+        out[q * total_out + blockIdx.x * static_cast<int64_t>(cut) + e] =
+            e < len ? sm[q * plane + spad(e)] : SENT;
+      }
+    }
+    return;
+  }
+  const int lg_run = __ffs(run) - 1;
 #pragma unroll
   for (int k = 0; k < E; ++k) {
     const int e = threadIdx.x + k * blockDim.x;
+    int64_t i = base + e;
+    if constexpr (OUT == TileOut::Runs) {
+      if (i >= total) break;
+      if (alt > 0 && (static_cast<uint32_t>(i >> lg_run) %
+                      static_cast<uint32_t>(alt)) & 1) {
+        i ^= run - 1;                    // the mirror place in its run
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < KW; ++q) out[q * total + i] = sm[q * plane + spad(e)];
+  }
+}
+
+// K9's steps 2 and 3 in one CTA a segment: the segment's `pieces` packed
+// ascending pieces of len entries (pieces * len <= CUT_KEYS, MERGE_E a
+// thread) to its first min(keep, pieces * len) entries, packed, every
+// level in shared memory.
+template <int KW>
+__global__ void __launch_bounds__(CUT_THREADS) cut_merge_kernel(
+    const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int len,
+    int pieces, int keep) {
+  extern __shared__ uint32_t sm[];
+  const int span = pieces * len;
+  const int plane = span + span / 32;
+  const int64_t total_in = static_cast<int64_t>(gridDim.x) * span;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * span;
+  for (int e = threadIdx.x; e < span; e += blockDim.x) {
 #pragma unroll
     for (int q = 0; q < KW; ++q) {
-      out[q * total + base + e] = sm[q * plane + spad(e)];
+      sm[q * plane + spad(e)] = in[q * total_in + base + e];
+    }
+  }
+  __syncthreads();
+  len = block_levels<KW, MERGE_E, true>(sm, plane, len, pieces, keep);
+  const int64_t total_out = static_cast<int64_t>(gridDim.x) * len;
+  for (int e = threadIdx.x; e < len; e += blockDim.x) {
+#pragma unroll
+    for (int q = 0; q < KW; ++q) {
+      out[q * total_out + blockIdx.x * static_cast<int64_t>(len) + e] =
+          sm[q * plane + spad(e)];
     }
   }
 }
@@ -719,6 +775,26 @@ int64_t sort_tile(int64_t g, int64_t n) {
   return n < T / 4 ? n : T / 4;
 }
 
+// One level of the tiles' sorts: pairs of runs of len entries (plane
+// stride total_in) to their first outlen (>= MERGE_TILE) outputs each
+// (plane stride total_out); with alt > 0 a row's odd pairs (rows of alt
+// pairs) stored reversed.
+template <int KW>
+int sort_level(const uint32_t* in, uint32_t* out, int64_t total_in,
+               int64_t total_out, int64_t len, int64_t outlen, int64_t alt,
+               cudaStream_t stream) {
+  const auto grid = static_cast<unsigned>(total_out / MERGE_TILE);
+  const size_t smem = sizeof(uint32_t) * KW * MERGE_PLANE;
+  if (alt > 0) {
+    sort_level_kernel<KW, true><<<grid, MERGE_THREADS, smem, stream>>>(
+        in, out, total_in, total_out, len, outlen, alt);
+  } else {
+    sort_level_kernel<KW, false><<<grid, MERGE_THREADS, smem, stream>>>(
+        in, out, total_in, total_out, len, outlen, 0);
+  }
+  return last_error();
+}
+
 // K4: sorts each of the g rows of n entries (n a power of two >= 1,024):
 // tiles of sort_tile entries, then log2(n / tile) K5 levels (as
 // sort_level_kernel), which alternate between out and scratch so that the
@@ -730,7 +806,8 @@ int sort_rows(const uint32_t* in, uint32_t* out, uint32_t* scratch,
   constexpr int T = TILE_KEYS<KW>;
   constexpr size_t max_smem = sizeof(uint32_t) * KW * (T + T / 32);
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
-      reg_tile_sort_kernel<KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reg_tile_sort_kernel<KW, E, TILE_THREADS, TileOut::Sorted>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(max_smem)));
   if (attr != 0) return attr;
   const int tile = static_cast<int>(sort_tile<KW>(g, n));
@@ -741,50 +818,163 @@ int sort_rows(const uint32_t* in, uint32_t* out, uint32_t* scratch,
   }
   const int64_t total = g * n;
   uint32_t* src = (levels & 1) ? scratch : out;
-  reg_tile_sort_kernel<KW><<<static_cast<unsigned>(total / tile), tile / E,
-                             sizeof(uint32_t) * KW * (tile + tile / 32),
-                             stream>>>(in, src, total, tile);
+  reg_tile_sort_kernel<KW, E, TILE_THREADS, TileOut::Sorted>
+      <<<static_cast<unsigned>(total / tile), tile / E,
+         sizeof(uint32_t) * KW * (tile + tile / 32), stream>>>(
+          in, src, total, tile, tile, 0);
   int err = last_error();
   for (int l = 0; l < levels && err == 0; ++l) {
     uint32_t* dst = ((levels - 1 - l) & 1) ? scratch : out;
-    sort_level_kernel<KW><<<static_cast<unsigned>(total / MERGE_TILE),
-                            MERGE_THREADS,
-                            sizeof(uint32_t) * KW * MERGE_PLANE, stream>>>(
-        src, dst, total, static_cast<int64_t>(tile) << l);
-    err = last_error();
+    const int64_t len = static_cast<int64_t>(tile) << l;
+    err = sort_level<KW>(src, dst, total, total, len, 2 * len, 0, stream);
     src = dst;
   }
   return err;
 }
 
-// K9's cut: the first `cut` entries of each of `rows` sorted tiles of
-// `tile` entries, packed one after another.
-template <int KW>
-__global__ void truncate_kernel(const uint32_t* __restrict__ in,
-                                uint32_t* __restrict__ out, int64_t rows,
-                                int64_t tile, int64_t cut) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= rows * cut) return;
-  const int64_t src = e / cut * tile + e % cut;
-#pragma unroll
-  for (int q = 0; q < KW; ++q) out[q * rows * cut + e] = in[q * rows * tile + src];
+// K8's and K9's register tiles (RUN_E keys a thread, tile / RUN_E threads)
+// over `total` entries.
+template <int KW, TileOut OUT>
+int run_tiles(const uint32_t* in, uint32_t* out, int64_t total, int tile,
+              int run, int64_t alt, cudaStream_t stream) {
+  static const int attr = static_cast<int>(cudaFuncSetAttribute(
+      reg_tile_sort_kernel<KW, RUN_E, RUN_THREADS, OUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(uint32_t) * KW * (RUN_TILE + RUN_TILE / 32))));
+  if (attr != 0) return attr;
+  reg_tile_sort_kernel<KW, RUN_E, RUN_THREADS, OUT>
+      <<<static_cast<unsigned>((total + tile - 1) / tile), tile / RUN_E,
+         sizeof(uint32_t) * KW * (tile + tile / 32), stream>>>(
+          in, out, total, tile, run, alt);
+  return last_error();
 }
 
-// The sorted tiles are dead once cut, so their buffer is the merge's
-// scratch (m >= capacity); scratch is K4's.
+// K8's tile for runs of `run`: 2,048 entries up to runs of 2,048, else
+// 4,096 (at 2 runs of 2,048 a row, tiles of 4,096 took 31% longer on an
+// H100: the same levels in CTAs of 512 threads, PERF.md).
+int64_t runs_tile(int64_t run) {
+  return run <= RUN_TILE_MIN ? RUN_TILE_MIN : RUN_TILE;
+}
+
+// K8: sorts each of a row's m / run runs (rows of m entries, g * m in
+// all), odd runs reversed: the tiles, then log2(run / tile) levels, which
+// alternate between out and scratch (g * m entries a plane; null when run
+// <= 4,096) so that the last writes out.
 template <int KW>
-int sort_truncate(const uint32_t* in, uint32_t* sorted, uint32_t* scratch,
-                  uint32_t* cut_buf, uint32_t* out, int g, int64_t m,
-                  int64_t capacity, cudaStream_t stream) {
-  const int64_t tiles = g * (m / TRUNC_TILE);
+int sort_runs(const uint32_t* in, uint32_t* out, uint32_t* scratch,
+              int64_t g, int64_t m, int64_t run, cudaStream_t stream) {
+  const int64_t total = g * m, alt = m / run;
+  const int64_t tile = runs_tile(run);
+  int levels = 0;
+  for (int64_t r = tile; r < run; r <<= 1) ++levels;
+  if (levels > 0 && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  uint32_t* src = (levels & 1) ? scratch : out;
+  int err = run_tiles<KW, TileOut::Runs>(
+      in, src, total, static_cast<int>(tile),
+      static_cast<int>(levels ? tile : run), levels ? 0 : alt, stream);
+  for (int l = 0; l < levels && err == 0; ++l) {
+    uint32_t* dst = ((levels - 1 - l) & 1) ? scratch : out;
+    const int64_t len = tile << l;
+    err = sort_level<KW>(src, dst, total, total, len, 2 * len,
+                         l == levels - 1 ? alt : 0, stream);
+    src = dst;
+  }
+  return err;
+}
+
+// The launches of cut_merge below: `levels` cut to keep while a segment's
+// pieces overflow CUT_KEYS, then one in shared memory if more than one
+// piece is left.
+int cut_merge_launches(int64_t pieces, int64_t len, int64_t keep,
+                       int* levels) {
+  *levels = 0;
+  for (; pieces > 1 && pieces * len > CUT_KEYS; pieces >>= 1, ++*levels) {
+    len = 2 * len < keep ? 2 * len : keep;
+  }
+  return *levels + (pieces > 1 ? 1 : 0);
+}
+
+// K9's merge of pieces: each of nseg segments holds `pieces` ascending
+// pieces of len entries, packed in src, and keeps its first keep entries
+// (keep <= pieces * len), packed in dst: levels cut to keep
+// (sort_level_kernel), then cut_merge_kernel for the rest.  The last
+// launch writes dst, the others tmp and src in turn (tmp the size of src,
+// which is overwritten).
+template <int KW>
+int cut_merge(uint32_t* src, uint32_t* dst, uint32_t* tmp, int64_t nseg,
+              int64_t pieces, int64_t len, int64_t keep,
+              cudaStream_t stream) {
+  int levels;
+  const int launches = cut_merge_launches(pieces, len, keep, &levels);
+  uint32_t* const spare = src;
+  int err = 0;
+  for (int l = 0; l < launches && err == 0; ++l) {
+    uint32_t* to = l == launches - 1 ? dst : (l & 1) ? spare : tmp;
+    if (l < levels) {
+      const int64_t outlen = 2 * len < keep ? 2 * len : keep;
+      err = sort_level<KW>(src, to, nseg * pieces * len,
+                           nseg * (pieces / 2) * outlen, len, outlen, 0,
+                           stream);
+      pieces /= 2;
+      len = outlen;
+    } else {
+      static const int attr = static_cast<int>(cudaFuncSetAttribute(
+          cut_merge_kernel<KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(sizeof(uint32_t) * KW *
+                           (CUT_KEYS + CUT_KEYS / 32))));
+      if (attr != 0) return attr;
+      const int span = static_cast<int>(pieces * len);
+      cut_merge_kernel<KW><<<static_cast<unsigned>(nseg), span / MERGE_E,
+                             sizeof(uint32_t) * KW * (span + span / 32),
+                             stream>>>(src, to, static_cast<int>(len),
+                                       static_cast<int>(pieces),
+                                       static_cast<int>(keep));
+      err = last_error();
+    }
+    src = to;
+  }
+  return err;
+}
+
+// K9's scratch, u32 words a plane: step 1's pieces (np), the packed cuts
+// (g * capacity), and a second np when step 2 takes two launches or more.
+int64_t truncate_scratch(int64_t g, int64_t m, int64_t capacity) {
   const int64_t cut = capacity / (m / TRUNC_TILE);
-  int err = sort_rows<KW>(in, sorted, scratch, tiles, TRUNC_TILE, stream);
-  if (err) return err;
-  truncate_kernel<KW><<<pass_blocks(tiles * cut), PASS_THREADS, 0, stream>>>(
-      sorted, cut_buf, tiles, TRUNC_TILE, cut);
-  err = last_error();
-  return err ? err : merge_runs<KW>(cut_buf, out, sorted, g * capacity, cut,
-                                    capacity, stream);
+  const int64_t cutc = cut < RUN_TILE ? cut : RUN_TILE;
+  const int64_t np = g * m / RUN_TILE * cutc;
+  int levels;
+  const int steps = cut_merge_launches(TRUNC_TILE / RUN_TILE, cutc, cut,
+                                       &levels);
+  return np * (steps > 1 ? 2 : 1) + g * capacity;
+}
+
+// K9: per row (m = t * 32,768 entries), each tile's cut = capacity / t
+// smallest entries, merged into out (g, capacity).  scratch holds
+// KW * truncate_scratch(g, m, capacity) words.
+template <int KW>
+int sort_truncate(const uint32_t* in, uint32_t* scratch, uint32_t* out,
+                  int64_t g, int64_t m, int64_t capacity,
+                  cudaStream_t stream) {
+  const int64_t t = m / TRUNC_TILE, cut = capacity / t;
+  const int64_t cutc = cut < RUN_TILE ? cut : RUN_TILE;
+  const int64_t np = g * m / RUN_TILE * cutc;
+  uint32_t* pieces = scratch;
+  uint32_t* cuts = pieces + KW * np;
+  uint32_t* tmp = cuts + KW * g * capacity;
+  int err = run_tiles<KW, TileOut::Cut>(
+      in, pieces, g * m, RUN_TILE, static_cast<int>(cut), 0, stream);
+  if (err == 0) {
+    err = cut_merge<KW>(pieces, cuts, tmp, g * t, TRUNC_TILE / RUN_TILE,
+                        cutc, cut, stream);
+  }
+  if (err != 0) return err;
+  if (capacity <= CUT_KEYS) {
+    return cut_merge<KW>(cuts, out, nullptr, g, t, cut, capacity, stream);
+  }
+  return merge_runs<KW>(cuts, out, pieces, g * capacity, cut, capacity,
+                        stream);
 }
 
 }  // namespace
@@ -809,7 +999,6 @@ extern "C" int sks_sort_rows(const void* in, void* out, void* scratch,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
 // K5: in, out, scratch (pw, n) u32, the runs of `run` entries ascending;
 // each segment of seg entries is merged into one ascending run.  run and
 // seg powers of two, 2 * run <= seg, seg divides n.  None of the three may
@@ -834,7 +1023,6 @@ extern "C" int sks_merge_runs(const void* in, void* out, void* scratch,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
 // K10: a, b (pw, half) u32 ascending, half a power of two -> out
 // (pw, 2 * half) ascending, b read with b_offset (>= 0) added to word 0 of
 // every valid entry (word pw-1's top bit clear).  out may not alias a or b.
@@ -858,60 +1046,71 @@ extern "C" int sks_merge_pair(const void* a, const void* b, void* out, int pw,
   }
 }
 
+// K8's scratch in u32 words: kw * g * m when runs are longer than a tile
+// (4,096 entries), else 0.
+extern "C" int64_t sks_sort_runs_scratch(int kw, int g, int64_t m,
+                                         int64_t run) {
+  return run > sks::RUN_TILE ? int64_t{kw} * g * m : 0;
+}
+
 // K8: in, out (kw, g, m) u32; each row's runs of `run` entries (a power of
 // two >= 128 dividing m) sorted independently, run i of the row ascending
-// if i is even and descending if odd.  out may not alias in.
-extern "C" int sks_sort_runs(const void* in, void* out, int kw, int g,
-                             int64_t m, int64_t run, void* stream) {
+// if i is even and descending if odd.  scratch: sks_sort_runs_scratch
+// words (null when 0).  None may alias another.
+extern "C" int sks_sort_runs(const void* in, void* out, void* scratch,
+                             int kw, int g, int64_t m, int64_t run,
+                             void* stream) {
   if (g <= 0 || run < 128 || !sks::pow2(run) || m % run != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* i = static_cast<const uint32_t*>(in);
   auto* o = static_cast<uint32_t*>(out);
+  auto* t = static_cast<uint32_t*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  const int64_t runs = g * (m / run);
   switch (kw) {
-    case 1: return sks::bitonic_sort_runs<1>(i, o, runs, run, m / run,
-                                                 s);
-    case 2: return sks::bitonic_sort_runs<2>(i, o, runs, run, m / run,
-                                                 s);
-    case 3: return sks::bitonic_sort_runs<3>(i, o, runs, run, m / run,
-                                                 s);
-    case 4: return sks::bitonic_sort_runs<4>(i, o, runs, run, m / run,
-                                                 s);
+    case 1: return sks::sort_runs<1>(i, o, t, g, m, run, s);
+    case 2: return sks::sort_runs<2>(i, o, t, g, m, run, s);
+    case 3: return sks::sort_runs<3>(i, o, t, g, m, run, s);
+    case 4: return sks::sort_runs<4>(i, o, t, g, m, run, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K9: in (kw, g, m) u32, m = t * 32768 with t >= 2 a power of two;
-// out (kw, g, capacity) u32: per row, the capacity / t smallest entries of
-// each 32,768-entry tile, merged ascending (capacity / t a power of two
-// >= 128 and <= 32,768).  Scratch: sorted and scratch (kw, g, m), cut (kw,
-// g, capacity).
-extern "C" int sks_sort_truncate(const void* in, void* sorted, void* scratch,
-                                 void* cut, void* out, int kw, int g,
-                                 int64_t m, int64_t capacity, void* stream) {
+// K9's contract: m = t * 32768 with t >= 2 a power of two, capacity / t a
+// power of two in [128, 32768].
+static bool truncate_shape(int g, int64_t m, int64_t capacity) {
   const int64_t t = m / sks::TRUNC_TILE;
-  if (g <= 0 || m % sks::TRUNC_TILE != 0 || t < 2 || !sks::pow2(t) ||
-      capacity % t != 0 || capacity / t < 128 || !sks::pow2(capacity / t) ||
-      capacity / t > sks::TRUNC_TILE) {
+  return g > 0 && m % sks::TRUNC_TILE == 0 && t >= 2 && sks::pow2(t) &&
+         capacity % t == 0 && capacity / t >= 128 &&
+         sks::pow2(capacity / t) && capacity / t <= sks::TRUNC_TILE;
+}
+
+// K9's scratch in u32 words, -1 for a shape K9 does not take.
+extern "C" int64_t sks_sort_truncate_scratch(int kw, int g, int64_t m,
+                                             int64_t capacity) {
+  if (!truncate_shape(g, m, capacity)) return -1;
+  return int64_t{kw} * sks::truncate_scratch(g, m, capacity);
+}
+
+// K9: in (kw, g, m) u32 -> out (kw, g, capacity) u32: per row, the
+// capacity / t smallest entries of each 32,768-entry tile, merged
+// ascending.  scratch: sks_sort_truncate_scratch words.  None may alias
+// another.
+extern "C" int sks_sort_truncate(const void* in, void* scratch, void* out,
+                                 int kw, int g, int64_t m, int64_t capacity,
+                                 void* stream) {
+  if (!truncate_shape(g, m, capacity)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* i = static_cast<const uint32_t*>(in);
-  auto* so = static_cast<uint32_t*>(sorted);
-  auto* sc = static_cast<uint32_t*>(scratch);
-  auto* c = static_cast<uint32_t*>(cut);
+  auto* t = static_cast<uint32_t*>(scratch);
   auto* o = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (kw) {
-    case 1: return sks::sort_truncate<1>(i, so, sc, c, o, g, m, capacity,
-                                             s);
-    case 2: return sks::sort_truncate<2>(i, so, sc, c, o, g, m, capacity,
-                                             s);
-    case 3: return sks::sort_truncate<3>(i, so, sc, c, o, g, m, capacity,
-                                             s);
-    case 4: return sks::sort_truncate<4>(i, so, sc, c, o, g, m, capacity,
-                                             s);
+    case 1: return sks::sort_truncate<1>(i, t, o, g, m, capacity, s);
+    case 2: return sks::sort_truncate<2>(i, t, o, g, m, capacity, s);
+    case 3: return sks::sort_truncate<3>(i, t, o, g, m, capacity, s);
+    case 4: return sks::sort_truncate<4>(i, t, o, g, m, capacity, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

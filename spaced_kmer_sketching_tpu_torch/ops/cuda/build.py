@@ -101,8 +101,8 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines=()) -> pathlib.Path:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     cus, cuhs = _sources()
     for p in cus + cuhs:
         h.update(p.name.encode())
@@ -118,10 +118,12 @@ def _nvcc() -> str:
     return str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> pathlib.Path:
+def build(defines=()) -> pathlib.Path:
     """Compile csrc/*.cu unless a library of the same sources exists: one
-    nvcc per source, all at once, then one link."""
-    so = library_path()
+    nvcc per source, all at once, then one link.  `defines` ("NAME=VALUE")
+    set macros of the sources, such as csrc/sort.cu's SKS_RUN_E, for a
+    library of their own."""
+    so = library_path(defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -131,7 +133,8 @@ def build() -> pathlib.Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
         objs = [os.path.join(objdir, p.stem + ".o") for p in cus]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(p), "-o", o],
+            [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+             str(CSRC), "-c", str(p), "-o", o],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for p, o in zip(cus, objs)]
         failed = []
@@ -185,14 +188,25 @@ def _declare(lib) -> None:
     lib.sks_sort_rows.argtypes = [p, p, p, i, i, i64, p]
     lib.sks_merge_runs.restype = i
     lib.sks_merge_runs.argtypes = [p, p, p, i, i64, i64, i64, p]
-    lib.sks_sort_runs.restype = i
-    lib.sks_sort_runs.argtypes = [p, p, i, i, i64, i64, p]
-    lib.sks_sort_truncate.restype = i
-    lib.sks_sort_truncate.argtypes = [p, p, p, p, p, i, i, i64, i64, p]
     lib.sks_merge_pair.restype = i
     lib.sks_merge_pair.argtypes = [p, p, p, i, i64, i, p]
     lib.sks_gram_tiles.restype = i
     lib.sks_gram_tiles.argtypes = [p, i, i64, i, i, i, i64, p, p]
+    lib.sks_sort_runs_scratch.restype = i64
+    lib.sks_sort_runs_scratch.argtypes = [i, i, i64, i64]
+    lib.sks_sort_runs.restype = i
+    lib.sks_sort_runs.argtypes = [p, p, p, i, i, i64, i64, p]
+    lib.sks_sort_truncate_scratch.restype = i64
+    lib.sks_sort_truncate_scratch.argtypes = [i, i, i64, i64]
+    lib.sks_sort_truncate.restype = i
+    lib.sks_sort_truncate.argtypes = [p, p, p, i, i, i64, i64, p]
+
+
+def load(defines=()):
+    """A kernel library built with `defines` (see build), loaded."""
+    handle = ctypes.CDLL(str(build(defines)))
+    _declare(handle)
+    return handle
 
 
 def lib():
@@ -200,9 +214,7 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            _declare(handle)
-            _lib = handle
+            _lib = load()
     return _lib
 
 

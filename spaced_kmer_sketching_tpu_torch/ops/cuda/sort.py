@@ -1,4 +1,4 @@
-"""K4 sort, K8 run sort, K9 truncating tile sort, K5 and K10 merges of
+"""K4 sort, K8 run sort, K9 truncating sort, K5 and K10 merges of
 multi-word keys (csrc/sort.cu).
 
 K4 sorts each genome row of stacked planes (kw, G, N) int32 holding u32
@@ -8,11 +8,20 @@ batched by the finish's vmap.  K4 sorts tiles of 16,384 keys (kw <= 2) or
 8,192 (kw 3-4), a quarter of that when a few rows would leave most SMs
 idle, in one launch, 16 or 8 keys a thread in registers merged by merge
 path in shared memory, and merges longer rows with K5's levels, one
-launch a level, through a scratch tensor allocated here.  K8
-(sort_runs_128) sorts each row's runs with alternating directions, K9
-(sort_truncate_128) keeps each 32,768-key tile's share of a capacity and
-merges them (with K5's merge); both serve the finish fallbacks of
-ops/sketch.py, batched over the rows as K4 is.
+launch a level, through a scratch tensor allocated here.
+
+K8 (sort_runs_128) and K9 (sort_truncate_128) serve the finish fallbacks
+of ops/sketch.py, batched over the rows as K4 is, on the same machinery
+with 8 keys a thread.  K8 sorts every run of a row ascending in register
+tiles of 2,048 or 4,096 entries whose levels stop at the run, and stores
+odd runs reversed: one launch up to runs of 4,096, then K5's levels, the
+last storing odd runs reversed (4 launches at runs of 32,768).  K9 keeps
+each 32,768-key tile's cut = capacity / t smallest entries without
+sorting what the cut drops: tiles that sort only their valid keys, by
+levels that keep only a pair's first cut outputs, the tile's pieces
+merged to its cut, then the t cuts of a row merged, 3 launches up to a
+capacity of 8,192.  The library sizes both scratch tensors
+(sks_sort_runs_scratch, sks_sort_truncate_scratch).
 
 K5 (merge_sorted_runs) and K10 (merge_pair_streams) merge ascending packed
 (key, gid) streams of pw <= 5 planes, laid out as the JAX package's lists
@@ -215,9 +224,14 @@ def sort_runs(planes: torch.Tensor, run: int) -> torch.Tensor:
         return sort_runs_plain(planes, run)
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
+    lib = build.lib()
     out = torch.empty_like(planes)
-    err = build.lib().sks_sort_runs(planes.data_ptr(), out.data_ptr(), kw, g,
-                                    m, run, build.stream_ptr(dev))
+    words = lib.sks_sort_runs_scratch(kw, g, m, run)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev) if words \
+        else None
+    err = lib.sks_sort_runs(planes.data_ptr(), out.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            kw, g, m, run, build.stream_ptr(dev))
     build.check(err, "sks_sort_runs")
     K8.launches += 1
     return out
@@ -258,14 +272,13 @@ def sort_truncate(planes: torch.Tensor, capacity: int) -> torch.Tensor:
         return sort_truncate_plain(planes, capacity)
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
-    sorted_tiles = torch.empty_like(planes)
-    scratch = torch.empty_like(planes)
-    cut = torch.empty((kw, g, capacity), dtype=torch.int32, device=dev)
-    out = torch.empty_like(cut)
-    err = build.lib().sks_sort_truncate(
-        planes.data_ptr(), sorted_tiles.data_ptr(), scratch.data_ptr(),
-        cut.data_ptr(), out.data_ptr(), kw, g, m, capacity,
-        build.stream_ptr(dev))
+    lib = build.lib()
+    scratch = torch.empty(lib.sks_sort_truncate_scratch(kw, g, m, capacity),
+                          dtype=torch.int32, device=dev)
+    out = torch.empty((kw, g, capacity), dtype=torch.int32, device=dev)
+    err = lib.sks_sort_truncate(planes.data_ptr(), scratch.data_ptr(),
+                                out.data_ptr(), kw, g, m, capacity,
+                                build.stream_ptr(dev))
     build.check(err, "sks_sort_truncate")
     K9.launches += 1
     return out

@@ -762,6 +762,91 @@ def test_k9_matches_plain(dev, kw, g, t, cap):
                        sort.sort_truncate_plain(z, cap))
 
 
+def k8_input(dev, kw, g, runs, run, kind, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randint(-2 ** 31, 2 ** 31 - 1, (kw, g, runs * run),
+                      dtype=torch.int32, device=dev, generator=gen)
+    if kind == "duplicates":
+        z &= 3                            # a four-letter alphabet: ties
+    elif kind == "sentinel runs":
+        z.view(kw, g, runs, run)[:, :, 1::2] = -1
+        z.view(kw, g, runs, run)[:, :, 0, run // 3:] = -1
+    return z
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "sentinel runs"])
+@pytest.mark.parametrize("runs", [1, 3, 4])
+@pytest.mark.parametrize("run", [128, 256, 512, 1024, 2048, 4096, 8192,
+                                 16384, 32768])
+def test_k8_runs_tile_and_level_stores_match_plain(dev, run, runs, kind):
+    """K8 at runs of 128 to 32,768 (the tile's reversed store up to 4,096,
+    the last level's above), odd and even run counts a row, rows of
+    sentinel runs and heavy duplicates; kw 1-4 by run."""
+    kw = 1 + run.bit_length() % 4
+    z = k8_input(dev, kw, 2, runs, run, kind, run + runs)
+    assert torch.equal(sort.sort_runs(z, run), sort.sort_runs_plain(z, run))
+
+
+@pytest.mark.parametrize("g,runs,run,most", [(8, 2, 2048, 1),
+                                             (1, 8, 32768, 4)])
+def test_k8_device_launches(dev, g, runs, run, most):
+    """One launch at _finish_runs' shape (8 rows of 2 runs of 2,048), at
+    most 4 at 8 runs of 32,768."""
+    from chip_smoke import device_launches
+    z = k8_input(dev, 2, g, runs, run, "random", 3)
+    n = device_launches(lambda: sort.sort_runs(z, run))
+    assert n is not None and 1 <= n <= most
+
+
+def k9_input(dev, kw, g, t, cap, kind, seed):
+    """(kw, g, t * 32,768) planes: "exact" every tile holds exactly its cut
+    of valid keys, "ties" the same keys in every tile of a row, "full" no
+    sentinel, "over" tiles with more valid keys than their cut."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cut, m = cap // t, t * sort.TILE
+    z = torch.full((kw, g, m), -1, dtype=torch.int32, device=dev)
+    keys = torch.randint(0, 2 ** 31 - 1, (kw, g, m), dtype=torch.int32,
+                         device=dev, generator=gen)
+    if kind == "full":
+        return keys
+    tiles = z.view(kw, g, t, sort.TILE)
+    order = torch.rand((g, t, sort.TILE), device=dev,
+                       generator=gen).argsort(-1)
+    count = min(2 * cut, sort.TILE) if kind == "over" else cut
+    pos = order[..., :count]
+    if kind == "ties":
+        pos = pos[:, :1].expand(g, t, count)
+        keys.view(kw, g, t, sort.TILE)[:] = keys.view(
+            kw, g, t, sort.TILE)[:, :, :1].clone()
+    src = keys.view(kw, g, t, sort.TILE).gather(
+        -1, pos[None].expand(kw, g, t, count))
+    tiles.scatter_(-1, pos[None].expand(kw, g, t, count), src)
+    return z
+
+
+@pytest.mark.parametrize("kind", ["exact", "ties", "full", "over"])
+@pytest.mark.parametrize("kw,g,t,cap", [(2, 1, 4, 2048), (1, 2, 2, 65536),
+                                        (4, 1, 2, 256), (2, 2, 4, 512),
+                                        (3, 1, 2, 8192), (2, 1, 16, 8192),
+                                        (1, 1, 2, 4096), (2, 1, 8, 32768)])
+def test_k9_cut_shapes_match_plain(dev, kw, g, t, cap, kind):
+    """K9 with tiles holding exactly their cut of valid keys, the same
+    keys in every tile (ties across tiles), no sentinels, and more valid
+    keys than the cut; cut 128 to 32,768 (no cut at 65,536 over t = 2)."""
+    z = k9_input(dev, kw, g, t, cap, kind, t * cap + kw)
+    assert torch.equal(sort.sort_truncate(z, cap),
+                       sort.sort_truncate_plain(z, cap))
+
+
+@pytest.mark.parametrize("t,cap,most", [(4, 2048, 3), (16, 8192, 3)])
+def test_k9_device_launches(dev, t, cap, most):
+    """At most 3 launches at the tiled finish's shapes."""
+    from chip_smoke import device_launches
+    z = k9_input(dev, 2, 1, t, cap, "exact", 5)
+    n = device_launches(lambda: sort.sort_truncate(z, cap))
+    assert n is not None and 1 <= n <= most
+
+
 @pytest.mark.parametrize("n,cap,scale,route,kernel", [
     (65536, 512, 100, "runs", "K8"), (1 << 19, 512, 100, "tiled", "K9")])
 def test_fallback_finishes_on_the_gpu(dev, n, cap, scale, route, kernel):

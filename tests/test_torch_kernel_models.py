@@ -21,6 +21,13 @@ decomposition in numpy, as csrc/extract.cu and csrc/sort.cu compute it:
   network, the block's merge-path levels (each thread's diagonal found by
   a binary search, then E outputs merged in turn), and K5's levels above
   the tile.
+* K8 and K9 on the same machinery, 8 keys a thread: K8's tiles whose
+  levels stop at the run and whose store mirrors odd runs, and K5's levels
+  above 4,096 whose last staged store writes odd runs reversed; K9's tiles
+  that move their valid keys to the front and sort only the power of two
+  that holds them, by levels that keep only a pair's first cut outputs,
+  packed (a thread past them skips), each tile's first cut entries written
+  packed, the tile's pieces merged to its cut, then a row's cuts.
 
 The models live here, not in the package: they are what the kernels
 compute, written once more.  Every value is an integer, so every
@@ -734,15 +741,13 @@ def register_sort(x: np.ndarray, e: int) -> np.ndarray:
     return r.reshape(kw, -1)
 
 
-def merge_level(x: np.ndarray, run: int, e: int) -> np.ndarray:
-    """One merge level: every pair of ascending runs of `run` keys merged,
-    each thread writing e outputs.  A thread finds its diagonal d0 by the
-    binary search of smem_split (ties to A), then merges e outputs in
-    turn, as merge_thread does."""
-    kw, total = x.shape
-    e0 = np.arange(0, total, e, dtype=np.int64)
-    pair = e0 & ~(2 * run - 1)
-    d0 = e0 - pair
+def merge_outputs(x: np.ndarray, pair: np.ndarray, run: int,
+                  d0: np.ndarray, e: int) -> np.ndarray:
+    """Outputs [d0, d0 + e) of the merge of A = x[pair, pair + run) and
+    B = x[pair + run, pair + 2 run), one thread per entry of pair and d0:
+    the diagonal found by the binary search of smem_split (ties to A),
+    then e outputs merged in turn, as merge_thread does.  (kw, threads,
+    e)."""
     lo, hi = np.maximum(d0 - run, 0), np.minimum(d0, run)
     while (lo < hi).any():
         act = lo < hi
@@ -753,14 +758,22 @@ def merge_level(x: np.ndarray, run: int, e: int) -> np.ndarray:
         hi = np.where(act & below, mid, hi)
         lo = np.where(act & ~below, mid + 1, lo)
     i, j = lo, d0 - lo
-    out = np.empty_like(x)
+    out = np.empty((x.shape[0], pair.size, e), dtype=x.dtype)
     for k in range(e):
         xa = x[:, pair + np.minimum(i, run - 1)]
         yb = x[:, pair + run + np.minimum(j, run - 1)]
         take_a = (j >= run) | ((i < run) & ~lex_less(yb, xa))
-        out[:, e0 + k] = np.where(take_a, xa, yb)
+        out[:, :, k] = np.where(take_a, xa, yb)
         i, j = i + take_a, j + ~take_a
     return out
+
+
+def merge_level(x: np.ndarray, run: int, e: int) -> np.ndarray:
+    """One merge level: every pair of ascending runs of `run` keys merged,
+    each thread writing e outputs in place."""
+    e0 = np.arange(0, x.shape[1], e, dtype=np.int64)
+    pair = e0 & ~(2 * run - 1)
+    return merge_outputs(x, pair, run, e0 - pair, e).reshape(x.shape)
 
 
 def k4_model(planes: np.ndarray, sms: int = 132):
@@ -834,3 +847,244 @@ def test_k4_model_matches_plain():
     got, _ = k4_model(planes)
     want = sort.sort_rows_plain(torch.from_numpy(planes.view(np.int32)))
     np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+
+
+# --- K8 and K9: runs stored reversed, levels cut to the share ---------------
+
+RUN_E = 8                 # K8's and K9's keys a thread
+RUN_TILE = 4096           # their tile (K8: 2,048 up to runs of 2,048)
+CUT_KEYS = 8192           # cut_merge_kernel's segment
+TILE = sort.TILE
+
+
+def cut_levels(x: np.ndarray, seg: int, length: int, pieces: int, cut: int,
+               e: int, threads: int):
+    """The block's levels with CUT on each segment of `seg` slots in
+    shared memory (x (kw, nseg * seg)), holding `pieces` packed pieces of
+    `length`: a level's pairs give min(cut, 2 length) outputs, stored
+    packed at e0 = thread * e; a thread with e0 past the level's outputs
+    skips it (its slots keep stale keys).  Returns x and the last piece's
+    length."""
+    kw, n = x.shape
+    x = x.copy()
+    base = np.arange(0, n, seg, dtype=np.int64)[:, None]
+    e0 = np.arange(0, threads * e, e, dtype=np.int64)[None, :]
+    while pieces > 1:
+        outlen = min(cut, 2 * length)
+        active = np.broadcast_to(e0 < pieces // 2 * outlen,
+                                 (base.size, threads))
+        d0 = e0 & (outlen - 1)
+        pair = base + (e0 - d0) // outlen * 2 * length
+        got = merge_outputs(x, pair[active], length,
+                            np.broadcast_to(d0, active.shape)[active], e)
+        dst = (base + e0)[active][:, None] + np.arange(e)
+        x[:, dst] = got
+        length, pieces = outlen, pieces // 2
+    return x, length
+
+
+def staged_level(x: np.ndarray, run: int, outlen: int, alt: int):
+    """One of K5's levels through merge_pairs: pair p's first outlen
+    outputs, 2,048 (or outlen) a CTA, stored packed at p outlen; with alt
+    > 0 a pair odd within its row of alt pairs stored reversed by the
+    staged write-out (out[o + outlen - 1 - d0 - e])."""
+    kw, n = x.shape
+    pairs = n // (2 * run)
+    tile = min(outlen, 2048)
+    out = np.empty((kw, pairs * outlen), dtype=x.dtype)
+    for blk in range(pairs * outlen // tile):
+        pair, d0 = divmod(blk, outlen // tile)
+        d0 *= tile
+        e0 = d0 + np.arange(0, tile, 8, dtype=np.int64)
+        got = merge_outputs(x, np.full(e0.size, 2 * run * pair), run, e0,
+                            8).reshape(kw, tile)
+        e = np.arange(tile)
+        if alt and (pair % alt) & 1:
+            out[:, pair * outlen + outlen - 1 - d0 - e] = got
+        else:
+            out[:, pair * outlen + d0 + e] = got
+    return out
+
+
+def k8_model(planes: np.ndarray, run: int):
+    """(kw, G, m) uint32 -> (K8's output, launches): tiles of 2,048 (runs
+    <= 2,048) or 4,096 entries, the last one padded with sentinels, each
+    thread's 8 keys sorted in registers, the block's levels up to the run
+    (or the tile), odd runs of a row mirrored in the tile's store; K5's
+    levels above the tile, the last reversing."""
+    kw, g, m = planes.shape
+    total, alt = g * m, m // run
+    tile = 2048 if run <= 2048 else RUN_TILE
+    x = np.full((kw, -(-total // tile) * tile), SENT, dtype=np.uint32)
+    x[:, :total] = planes.reshape(kw, total)
+    x = register_sort(x, RUN_E)
+    length = RUN_E
+    while length < min(run, tile):
+        x = merge_level(x, length, RUN_E)
+        length *= 2
+    x = x[:, :total]
+    if run <= tile:
+        i = np.arange(total, dtype=np.int64)
+        odd = (i // run % alt) & 1 == 1
+        out = np.empty_like(x)
+        out[:, np.where(odd, i ^ (run - 1), i)] = x
+        return out.reshape(kw, g, m), 1
+    launches = 1
+    while length < run:
+        last = 2 * length == run
+        x = staged_level(x, length, 2 * length, alt if last else 0)
+        length *= 2
+        launches += 1
+    return x.reshape(kw, g, m), launches
+
+
+def k9_tile(tile: np.ndarray, cut: int):
+    """One CTA of K9's step 1 on (kw, 4,096) keys: the valid keys moved to
+    the front in slot order (the ballot scan), the smallest power of two
+    >= 8 that holds them sorted (8 keys a thread, then the levels cut to
+    the share), the first min(cut, 4,096) entries written, sentinels past
+    the sorted span.  Returns them and the levels run."""
+    kw = tile.shape[0]
+    valid = (tile != SENT).any(0)
+    n = int(valid.sum())
+    span = max(RUN_E, 1 << (n - 1).bit_length()) if n else RUN_E
+    x = np.full((kw, span), SENT, dtype=np.uint32)
+    x[:, :n] = tile[:, valid]
+    x, length = cut_levels(register_sort(x, RUN_E), span, RUN_E,
+                           span // RUN_E, cut, RUN_E, span // RUN_E)
+    out = np.full((kw, min(cut, RUN_TILE)), SENT, dtype=np.uint32)
+    out[:, :length] = x[:, :min(length, out.shape[1])]
+    return out, (span // RUN_E).bit_length() - 1
+
+
+def cut_merge_model(x: np.ndarray, nseg: int, pieces: int, length: int,
+                    keep: int):
+    """K9's merge of each segment's pieces to its first keep entries:
+    levels cut to keep (staged_level) while a segment's pieces overflow
+    CUT_KEYS, then cut_merge_kernel's levels in one segment's shared
+    memory (span / 8 threads).  Returns the packed result and launches."""
+    launches = 0
+    while pieces > 1 and pieces * length > CUT_KEYS:
+        outlen = min(keep, 2 * length)
+        x = staged_level(x, length, outlen, 0)
+        pieces, length = pieces // 2, outlen
+        launches += 1
+    if pieces > 1:
+        span = pieces * length
+        x, length = cut_levels(x, span, length, pieces, keep, 8, span // 8)
+        x = x.reshape(x.shape[0], nseg, span)[:, :, :length]
+        launches += 1
+    return x.reshape(x.shape[0], -1), launches
+
+
+def k9_model(planes: np.ndarray, capacity: int):
+    """(kw, G, m = t * 32,768) uint32 -> (K9's (kw, G, capacity), launches):
+    tiles of 4,096 (k9_tile), each writing its first min(cut, 4,096)
+    entries packed; each 32,768-entry tile's 8 pieces merged to its cut;
+    each row's t cuts merged (cut_merge_kernel up to 8,192, else K5's
+    levels)."""
+    kw, g, m = planes.shape
+    t = m // TILE
+    cut = capacity // t
+    cutc = min(cut, RUN_TILE)
+    x = planes.reshape(kw, g * m // RUN_TILE, RUN_TILE)
+    x = np.concatenate([k9_tile(x[:, i], cut)[0]
+                        for i in range(x.shape[1])], axis=1)
+    x, launches = cut_merge_model(x, g * t, TILE // RUN_TILE, cutc, cut)
+    if capacity <= CUT_KEYS:
+        x, more = cut_merge_model(x, g, t, cut, capacity)
+    else:                                   # K5's merge_runs
+        run = cut
+        while run < capacity:               # pairs never cross a row
+            x = merge_level(x, run, 8)
+            run *= 2
+        # one launch for the levels below 2,048, then one a level
+        more = (cut < 2048) + (capacity // max(cut, 2048)).bit_length() - 1
+    return x.reshape(kw, g, capacity), 1 + launches + more
+
+
+def runs_input(rng, kw, g, m, run):
+    x = sort_input(rng, kw, g, m)
+    x[:, -1, :run] = SENT                      # an all-sentinel run
+    return x
+
+
+def plain(fn, planes, arg):
+    got = fn(torch.from_numpy(planes.view(np.int32)), arg)
+    return got.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("kw,g,runs,run,launches", [
+    (1, 2, 4, 128, 1), (2, 3, 3, 256, 1), (3, 2, 1, 1024, 1),
+    (4, 3, 3, 1024, 1), (2, 8, 2, 2048, 1), (1, 1, 3, 4096, 1),
+    (2, 2, 3, 8192, 2), (3, 1, 2, 16384, 3), (4, 1, 1, 32768, 4)])
+def test_k8_model_matches_plain(kw, g, runs, run, launches):
+    """Runs sorted in tiles that stop at the run (runs of 128 to 2,048
+    share a tile of 2,048; a tile past the end of an odd run count is
+    padded), odd runs mirrored in the tile's store, and K5's levels above
+    4,096 whose last staged store writes odd runs reversed; odd run counts
+    a row, duplicates, an all-sentinel run, kw 1-4."""
+    rng = np.random.default_rng(run * runs + kw)
+    planes = runs_input(rng, kw, g, runs * run, run)
+    got, count = k8_model(planes, run)
+    np.testing.assert_array_equal(got, plain(sort.sort_runs_plain, planes,
+                                             run))
+    assert count == launches
+
+
+@pytest.mark.parametrize("valid,cut,levels", [(0, 512, 0), (8, 128, 0),
+                                              (33, 512, 3), (600, 512, 7),
+                                              (4096, 128, 9),
+                                              (4096, 4096, 9)])
+def test_k9_tile_sorts_only_its_valid_span(valid, cut, levels):
+    """A tile of K9's step 1 sorts only the power of two that holds its
+    valid keys (33 valid: 64 entries, 3 levels; a full tile 9), and
+    writes the full sort's first cut entries; keys with some all-ones
+    words stay valid."""
+    rng = np.random.default_rng(valid + cut)
+    tile = np.full((2, RUN_TILE), SENT, dtype=np.uint32)
+    pos = rng.choice(RUN_TILE, valid, replace=False)
+    tile[:, pos] = rng.integers(0, 2 ** 32, (2, valid), dtype=np.uint64)
+    tile[1, pos[::5]] = SENT
+    got, count = k9_tile(tile, cut)
+    want = lexsorted(tile[:, None])[:, 0, :min(cut, RUN_TILE)]
+    np.testing.assert_array_equal(got, want)
+    assert count == levels
+
+
+def truncate_input(rng, kw, g, t, cap, kind):
+    m, cut = t * TILE, cap // t
+    x = np.full((kw, g, m), SENT, dtype=np.uint32)
+    keys = rng.integers(0, 2 ** 31, (kw, g, m), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "full":
+        return keys
+    for r in range(g):
+        for j in range(t):
+            pos = j * TILE + rng.choice(TILE, {"exact": cut,
+                                               "over": 2 * cut}[kind],
+                                        replace=False)
+            x[:, r, pos] = keys[:, r, pos]
+    x[:, :, TILE:2 * TILE] = np.where(x[:, :, TILE:2 * TILE] == SENT, SENT,
+                                      x[:, :, :TILE])   # ties across tiles
+    return x
+
+
+@pytest.mark.parametrize("kw,g,t,cap,kind,launches", [
+    (2, 1, 4, 2048, "exact", 3), (1, 2, 2, 256, "over", 3),
+    (3, 1, 2, 512, "exact", 3), (4, 1, 2, 4096, "over", 4),
+    (2, 1, 2, 65536, "full", 5), (1, 1, 4, 16384, "over", 6),
+    (2, 1, 16, 8192, "exact", 3)])
+def test_k9_model_matches_plain(kw, g, t, cap, kind, launches):
+    """The levels cut to each pair's first cut outputs with the thread-skip
+    rule, each tile's first cut entries written packed, the tile's pieces
+    merged to its cut (levels cut to the share above 8,192 entries a
+    tile, then one CTA), a row's cuts merged; cut 128 to 32,768 (no cut),
+    tiles with exactly or more than their cut of valid keys, ties across
+    tiles, kw 1-4."""
+    rng = np.random.default_rng(t * cap + kw)
+    planes = truncate_input(rng, kw, g, t, cap, kind)
+    got, count = k9_model(planes, cap)
+    np.testing.assert_array_equal(
+        got, plain(sort.sort_truncate_plain, planes, cap))
+    assert count == launches
