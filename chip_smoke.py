@@ -53,7 +53,13 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      48,502 nt (phage lambda) at sketch_capacity 512, which the planner
      sends to the _finish_runs fallback (K8, K5); (c) a 2 Mnt genome at
      sketch_capacity 2048: the tiled _finish_candidates (K9) overflows and
-     the retry finishes.
+     the retry finishes;
+ 11. the port's bench (`python -m spaced_kmer_sketching_tpu_torch.bench`),
+     one subprocess a run: sketch and multiseed at their defaults, allpairs
+     --ondevice and --probe at G = 128, allpairs --blocked at G = 512,
+     stream at 2^25 nt (two segments), e2e from codes at G = 256 and from
+     device genomes at G = 1,024, four at a time; each must exit 0 with a
+     verified line from the gpu that launched the run's kernels.
 Phase 2 also holds K7 against its plain version at a streaming segment's
 shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
 K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
@@ -77,9 +83,10 @@ diagonal, and 8 sampled sketches (and their pairs) must equal the native
 pipeline on their genomes' codes drawn again.  Phases 9 and 10 hold every
 sketch to the native scalar pipeline (phase 9 with each seed's mask and
 salt).  The kernels' launch counters are set to 0 before each of the paths
-(phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c) and read after it; each
-kernel must have been launched by the path that uses it, and K7 by phases
-7, 8a, 8b and 9.
+(phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c; each bench run in its own
+process) and read after it; each kernel must have been launched by the
+path that uses it, and K7 by phases 7, 8a, 8b, 9 and the bench's
+multiseed, stream and e2e runs.
 
 K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
 every pw instance, from cuobjdump -sass).
@@ -138,6 +145,25 @@ CONFIG4_NT = 1_550_000
 M32 = 0xFFFFFFFF
 CONFIG3_SEEDS = 8    # phase 9: mask seeds 0..7
 LAMBDA_NT = 48_502   # phase 10(b): phage lambda's length
+# Phase 11: the port's bench (python -m spaced_kmer_sketching_tpu_torch.bench)
+# one subprocess a run, with the hand-written kernels each run must launch
+# (its line's `launches`); the sketch mode's finish adds its route's kernels.
+BENCH_RUNS = (
+    ("sketch", ["--mode", "sketch"], ("K1", "K3", "K4")),
+    ("multiseed", ["--mode", "multiseed"], ("K7", "K3", "K4")),
+    ("allpairs ondevice", ["--mode", "allpairs", "--ondevice"], ("K5", "K6")),
+    ("allpairs probe", ["--mode", "allpairs", "--probe"], ()),
+    ("allpairs blocked", ["--mode", "allpairs", "--blocked", "--genomes",
+                          "512"], ("K5", "K10", "K6")),
+    ("stream", ["--mode", "stream", "--nt", "33554432"], ("K7", "K3", "K4")),
+    ("e2e codes", ["--mode", "e2e", "--e2e-source", "codes", "--genomes",
+                   "256"], ("K7", "K3", "K4", "K5", "K10", "K6")),
+    ("e2e device", ["--mode", "e2e", "--e2e-source", "device", "--genomes",
+                    "1024"], ("K7", "K3", "K4", "K5", "K10", "K6")),
+)
+ROUTE_KERNELS = {"tree": ("K2",), "runs": ("K8", "K5"), "tiled": ("K9",),
+                 "sort": ()}
+BENCH_WORKERS = 4
 # The least time the card could take (NVIDIA's published H100 SXM peaks,
 # at 700 W): bytes over the HBM rate, or instructions over the rate the
 # schedulers dispatch them.
@@ -2015,6 +2041,51 @@ def run_config4_device(seed, pool) -> dict:
             "profile": prof}
 
 
+# --- phase 11: the port's bench ----------------------------------------------
+
+def run_bench() -> dict:
+    """Phase 11: each of BENCH_RUNS through `python -m
+    spaced_kmer_sketching_tpu_torch.bench` in a subprocess, BENCH_WORKERS
+    at a time (a process takes ~8 s to reach the card).  Each must exit 0
+    with a last line that is verified against the native pipeline, ran on
+    the gpu, and launched the run's kernels; the lines are printed and
+    their launches summed.  Runs share the card here, so their times are
+    not the bench's measurements: those come from runs of their own."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    def run(argv):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "spaced_kmer_sketching_tpu_torch.bench",
+             *argv], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        return p, time.perf_counter() - t0
+
+    launches = dict.fromkeys(build.KERNELS, 0)
+    lines = {}
+    with cf.ThreadPoolExecutor(max_workers=BENCH_WORKERS) as pool:
+        futs = [(label, kernels, pool.submit(run, argv))
+                for label, argv, kernels in BENCH_RUNS]
+        for label, kernels, fut in futs:
+            p, wall = fut.result()
+            need(p.returncode == 0, f"phase 11: bench {label} exited "
+                 f"{p.returncode}: {p.stderr[-3000:]}")
+            line = json.loads(p.stdout.strip().splitlines()[-1])
+            print(f"phase 11: bench {label} ({wall:.3f} s): "
+                  f"{json.dumps(line)}")
+            need(line["verified"] is True,
+                 f"phase 11: bench {label} not verified")
+            need(line["platform"] == "gpu", f"phase 11: bench {label} ran "
+                 f"on {line['platform']}")
+            for key in kernels + ROUTE_KERNELS[line.get("finish_route",
+                                                         "sort")]:
+                need(line["launches"].get(key, 0) > 0,
+                     f"{key} was not launched by bench {label}")
+            for key, n in line["launches"].items():
+                launches[key] += n
+            lines[label] = line
+    return {"launches": launches, "lines": lines}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2116,8 +2187,12 @@ def main(argv=None) -> int:
             cfg4 = run_config4_cli(pathlib.Path(tmp), args.seed, pool)
         cfg4b = run_config4_device(args.seed, pool)
         print(f"phase 8: {time.perf_counter() - t0:.3f} s in all")
+    # phase 11: the port's bench, one subprocess a run
+    t0 = time.perf_counter()
+    bench = run_bench()
+    print(f"phase 11: {time.perf_counter() - t0:.3f} s in all")
 
-    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb)
+    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb, bench)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
@@ -2186,6 +2261,9 @@ def main(argv=None) -> int:
     print(f"config 3 ({CONFIG3_SEEDS} seeds over each of config 1's 2 "
           f"genomes): {cfg3['wall_s']} s wall, {cfg3['rates']} "
           f"window-seeds/s; {smi}")
+    print("bench (phase 11): " + "; ".join(
+        f"{label} {line['metric']} {line['value']} {line['unit']}"
+        for label, line in bench["lines"].items()) + f"; {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,6 +18,10 @@ package: G <= 8 with the native library takes the host sorted merge;
 (ops/gram.py: K5 merge, K6 scan); larger G the single-device block-cache
 schedule (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile).
 
+`intersections` (pairwise, the reference's pair lists) and
+`all_pairs_intersections_probe` (the cross-check engine) run the
+binary-search probe of ops/intersect.py on the sketcher's device.
+
 Fused multi-seed sketching (BASELINE config 3, `sketch_packed_multiseed`)
 uploads one genome in the compact form and runs S spaced seeds over it in
 one K7 launch (seed-batch mode) and one finish of S rows.
@@ -43,6 +47,7 @@ from ..ingest.fasta import PackedSeqs, read_fasta
 from ..observability import count as obs_count, get_logger, span
 from ..ops.cuda.extract import pack2bit, pack2bit_rows, packed_body
 from ..ops.gram import LANES, _guard_words, gram_all_pairs_ondevice
+from ..ops.intersect import intersection_tile, pair_intersection_batch
 from ..ops.sketch import (finish_words, merge_sketches, sketch_batch_compact,
                           sketch_batch_packed_dyn)
 from ..parallel.allpairs import blocked_all_pairs
@@ -508,6 +513,49 @@ class FracMinHashSketcher:
             return gram_all_pairs_ondevice(keys,
                                            key_bits=key_bits).cpu().numpy()
         return blocked_all_pairs(keys, key_bits=key_bits)
+
+    def _stack_full(self, sketches: Sequence[Sketch], cap: int):
+        """Sketches -> (keys (G, cap, 4) int32 all-ones padded, counts (G,)
+        int32) on the sketcher's device: the probe's layout (the JAX
+        `stack_sketches` with a given cap)."""
+        keys = np.full((len(sketches), cap, 4), 0xFFFFFFFF, dtype=np.uint32)
+        counts = np.zeros(len(sketches), dtype=np.int32)
+        for i, s in enumerate(sketches):
+            keys[i, :s.count] = s.keys
+            counts[i] = s.count
+        return (torch.from_numpy(keys.view(np.int32)).to(self.device),
+                torch.from_numpy(counts).to(self.device))
+
+    def intersections(self, sketches_a: Sequence[Sketch],
+                      sketches_b: Sequence[Sketch]) -> np.ndarray:
+        """Pairwise |A_i ∩ B_i| for two equal-length sketch lists by the
+        probe (ops/intersect.py) on the sketcher's device (reference
+        kmer_set.cpp:143-184 incl. its length-mismatch error)."""
+        if len(sketches_a) != len(sketches_b):
+            raise ValueError("Mismatched pair-list lengths")
+        cap = _next_pow2(max([s.count for s in
+                              list(sketches_a) + list(sketches_b)] or [1]))
+        ka, ca = self._stack_full(sketches_a, cap)
+        kb, cb = self._stack_full(sketches_b, cap)
+        return pair_intersection_batch(ka, ca, kb, cb).cpu().numpy()
+
+    def all_pairs_intersections_probe(self, sketches: Sequence[Sketch],
+                                      tile: int = 64) -> np.ndarray:
+        """(G, G) matrix by the binary-search probe in (tile x tile)
+        blocks on the sketcher's device: the cross-check engine beside the
+        Gram."""
+        g = len(sketches)
+        cap = _next_pow2(max([s.count for s in sketches] or [1]))
+        keys, counts = self._stack_full(sketches, cap)
+        out = np.zeros((g, g), dtype=np.int32)
+        for r0 in range(0, g, tile):
+            r1 = min(r0 + tile, g)
+            for c0 in range(0, g, tile):
+                c1 = min(c0 + tile, g)
+                out[r0:r1, c0:c1] = intersection_tile(
+                    keys[r0:r1], counts[r0:r1], keys[c0:c1],
+                    counts[c0:c1]).cpu().numpy()
+        return out
 
     def ani_from_intersections(self, inter: np.ndarray,
                                counts_first: np.ndarray) -> np.ndarray:

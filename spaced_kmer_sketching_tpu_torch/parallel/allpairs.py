@@ -16,8 +16,8 @@ pass over the two streams with the column block's gid shift folded into
 its loads, so each costs the bytes it moves.
 
 Not ported yet (ROADMAP.md): the bit-tight slab transport, the int16 tile
-download, multi-device round-robin, the store-backed out-of-core per-tile
-schedule and the probe engine.
+download, multi-device round-robin and the store-backed out-of-core
+per-tile schedule.  The probe engine is ops/intersect.py.
 """
 from __future__ import annotations
 

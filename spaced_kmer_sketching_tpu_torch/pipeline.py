@@ -147,6 +147,7 @@ class DevicePipeline:
                              "must divide one another")
         self.sk = sketcher
         self.dispatch = dispatch
+        self.restarts = 0      # whole-run restarts after a sketch overflow
 
     # -- sketch dispatch ------------------------------------------------
     def _dispatch(self, batch, n: int, capacity: int):
@@ -200,6 +201,7 @@ class DevicePipeline:
                 log.info("pipeline sketch overflow -> retry cap=%d",
                          e.capacity)
                 capacity = e.capacity
+                self.restarts += 1
 
     def _all_pairs_once(self, source, g: int, n: int, capacity: int,
                         verify_ids) -> PipelineResult:

@@ -101,6 +101,12 @@ def _declare(lib):
         c.c_uint64, c.c_uint64, c.c_int,
         c.c_uint64, c.c_uint64, c.c_int,
         c.POINTER(c.c_uint64), c.c_int64]
+    lib.skt_sketch_batch_mt.restype = None
+    lib.skt_sketch_batch_mt.argtypes = [
+        c.POINTER(c.c_uint8), c.c_int64, c.c_int,
+        c.c_uint64, c.c_uint64, c.c_int,
+        c.c_uint64, c.c_uint64, c.c_int,
+        c.c_int, c.POINTER(c.c_int64)]
     lib.skt_intersect_sorted.restype = c.c_int64
     lib.skt_intersect_sorted.argtypes = [
         c.POINTER(c.c_uint64), c.c_int64, c.POINTER(c.c_uint64), c.c_int64]
@@ -177,6 +183,25 @@ def sketch_codes(codes: np.ndarray, run_lens: np.ndarray, mask_lo: int, mask_hi:
         if n >= 0:
             return out[:n]
         cap = -n
+
+
+def sketch_batch_mt(codes: np.ndarray, mask_lo: int, mask_hi: int,
+                    window: int, salt: int, scale: int, legacy: bool,
+                    nthreads: int) -> np.ndarray:
+    """Multi-threaded whole-host baseline: sketch a (G, n) single-run batch
+    with `nthreads` std::threads over genomes (the reference's cilk_for over
+    files, kmer_set.cpp:124).  Returns per-genome unique counts."""
+    lib = get_lib()
+    assert lib is not None
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    g, n = codes.shape
+    counts = np.zeros(g, dtype=np.int64)
+    lib.skt_sketch_batch_mt(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        np.int64(n), int(g), np.uint64(mask_lo), np.uint64(mask_hi),
+        int(window), np.uint64(salt), np.uint64(scale), int(legacy),
+        int(nthreads), counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return counts
 
 
 def fasta_stream(path: str, chunk_nt: int):

@@ -905,3 +905,42 @@ def test_multiseed_and_single_genome_on_the_gpu_match_native(dev):
     u64 = np.stack([keys[:, 0] | keys[:, 1] << np.uint64(32),
                     keys[:, 2] | keys[:, 3] << np.uint64(32)], axis=1)
     np.testing.assert_array_equal(u64, native_sketch(sk, pk))
+
+
+def test_intersection_tile_on_the_gpu_equals_cpu(dev):
+    """The probe (ops/intersect.py) on the card against its CPU result, on
+    sketches whose key words all have bit 31 set, a real all-ones key and
+    counts of 0 and of cap."""
+    from spaced_kmer_sketching_tpu_torch.ops.intersect import (
+        all_pairs_matrix, intersection_tile)
+    rng = np.random.default_rng(21)
+    g, cap = 8, 1024
+    pool = rng.integers(2 ** 31, 2 ** 32, (3 * cap, 4), dtype=np.uint64)
+    pool[0] = 0xFFFFFFFF
+    keys = np.full((g, cap, 4), 0xFFFFFFFF, np.uint32)
+    counts = np.array([cap, 0, 1, 500, cap - 1, 17, cap, 300], np.int32)
+    for i, c in enumerate(counts):
+        sel = pool[rng.choice(pool.shape[0], int(c), replace=False)]
+        if i in (0, 6):
+            sel[0] = 0xFFFFFFFF          # a real all-ones key
+        u = np.unique(sel[:, ::-1], axis=0)[:, ::-1].astype(np.uint32)
+        keys[i, :u.shape[0]] = u
+        counts[i] = u.shape[0]
+    k = torch.from_numpy(keys.view(np.int32))
+    c = torch.from_numpy(counts)
+    want = intersection_tile(k, c, k, c)
+    got = intersection_tile(k.to(dev), c.to(dev), k.to(dev), c.to(dev))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(all_pairs_matrix(k.to(dev), c.to(dev)).cpu(), want)
+    assert int(want[0, 6]) > 0 and int(want[1].sum()) == 0
+
+
+def test_bench_sketch_mode_is_verified(dev, capsys):
+    """The bench's sketch mode in-process at 2^20 nt: every genome's keys
+    and the intersection tile equal the native pipeline, on the gpu."""
+    import json
+    from spaced_kmer_sketching_tpu_torch import bench
+    rc = bench.main(["--mode", "sketch", "--nt", "1048576", "--iters", "2"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and line["verified"] is True
+    assert line["platform"] == "gpu" and line["launches"]["K1"] > 0
