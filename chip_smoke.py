@@ -59,7 +59,24 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      --ondevice and --probe at G = 128, allpairs --blocked at G = 512,
      stream at 2^25 nt (two segments), e2e from codes at G = 256 and from
      device genomes at G = 1,024, four at a time; each must exit 0 with a
-     verified line from the gpu that launched the run's kernels.
+     verified line from the gpu that launched the run's kernels;
+ 12. (a) the CLI's 62-config sweep on genomes 0 and 1 with --store, whose
+     CSV must be phase 4's bytes, cut after 31 configs and 2 rows (as a
+     kill leaves it) and rerun with the same store: phase 4's bytes again,
+     and no K1 launch; (b) config 2's 100 genomes through the CLI with
+     --store twice (the second run launches no K1; both write phase 5's
+     bytes), then with --pairing ring: 100 rows, each phase 5's row
+     (i, i+1 mod 100); (c) blocked_all_pairs on 16,512 host sketches of
+     ~25,000 40-bit keys at capacity 32,768 (129 blocks, from clade pools
+     as phase 6 draws them) at the default budgets: the slab and cache
+     would need 8,657,043,456 bytes, over 8 GiB, so the out-of-core
+     schedule runs (K5 presorts, one K10 and one K6 a tile, 8,385 tiles),
+     then once more under torch.profiler, as phase 6, then through
+     FracMinHashSketcher.all_pairs_intersections on the same keys as
+     Sketch objects (blocks stacked on demand): the same matrix; (d) phase
+     8(b)'s int32 matrix download in turns with an int16 one; (e) the CLI
+     on config 1 with --profile DIR: the trace must name the kernels and
+     the CSV be phase 3's.
 Phase 2 also holds K7 against its plain version at a streaming segment's
 shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
 K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
@@ -80,11 +97,16 @@ CSV must equal the two-step path's, 64 sampled sketches the native ones,
 and the pipeline's matrix among those 64 native merges of them; phase
 8(b)'s matrix must be symmetric with the counts on its
 diagonal, and 8 sampled sketches (and their pairs) must equal the native
-pipeline on their genomes' codes drawn again.  Phases 9 and 10 hold every
+pipeline on their genomes' codes drawn again.  Phase 12(c)'s matrix must
+be symmetric with the counts on its diagonal, equal native merges on
+every pair of block 0 and the last block and on a seeded sample of 2,000
+pairs, and equal the in-core route on its leading 4,096 x 4,096 block.
+Phases 9 and 10 hold every
 sketch to the native scalar pipeline (phase 9 with each seed's mask and
 salt).  The kernels' launch counters are set to 0 before each of the paths
-(phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c; each bench run in its own
-process) and read after it; each kernel must have been launched by the
+(phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c, 12a's two runs, 12b's
+three, 12c and 12e; each bench run in its own process) and read after
+it; each kernel must have been launched by the
 path that uses it, and K7 by phases 7, 8a, 8b, 9 and the bench's
 multiseed, stream and e2e runs.
 
@@ -138,6 +160,12 @@ TOLERANCE = 0        # integer keys and counts: every comparison is exact
 GENOMES = 8          # phase 3: the native host merge's largest G
 CONFIG2_GENOMES = 100
 BLOCKED_GENOMES = 4096
+# Phase 12(c): 129 blocks of 128 sketches of ~25,000 40-bit keys at capacity
+# 32,768 (a 5-Mnt genome at w = 20, scale 200), drawn from 64 clade pools of
+# 40,000 keys: the in-core slab and cache would pass the 8 GiB budget.  The
+# leading 32 blocks are checked against the in-core route.
+OUT_OF_CORE = {"genomes": 16512, "cap": 32768, "count": 25000, "pool": 40000,
+               "lead_blocks": 32}
 SEGMENT = 1 << 24    # streaming segment (sketch_file_streaming's default)
 CONFIG4_FILES = 640  # 5 blocks of 128: past the pipeline's 512-genome route
 CONFIG4_GENOMES = 10240
@@ -1203,7 +1231,7 @@ def phase_gram_kernels(dev, timer, seed):
     hold("K10", sort.merge_pair_streams(pa, pb),
          sort.merge_pair_streams_plain(pa, pb),
          f"two blocks of {block} x {cap}, pw {pa.shape[0]}, no offset")
-    # column gids + block, as gram_pair_tiles calls K10
+    # column gids + block, as gram_pair_tile calls K10
     merged = sort.merge_pair_streams(pa, pb, b_gid_offset=block)
     hold("K10", merged,
          sort.merge_pair_streams_plain(pa, pb, b_gid_offset=block),
@@ -1477,7 +1505,7 @@ def run_config2(tmp: pathlib.Path, rng, pool) -> dict:
           f"native intersections in {time.perf_counter() - t0:.3f} s; "
           f"containment off the diagonal {off.min():.4f}-{off.max():.4f}")
     return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
-            "wall_s": wall}
+            "wall_s": wall, "paths": paths}
 
 
 def run_blocked(rng, pool) -> dict:
@@ -1924,7 +1952,7 @@ def run_config4_cli(tmp: pathlib.Path, seed, pool) -> dict:
 
     captured = record_sketches()
     routing = driver._use_device_pipeline
-    driver._use_device_pipeline = lambda sk, f: False
+    driver._use_device_pipeline = lambda *args: False
     t0 = time.perf_counter()
     try:
         _, s2_ms, c2_ms = run_cli([str(tmp / "two_step.csv"), *paths, *args])
@@ -1999,6 +2027,29 @@ def run_config4_device(seed, pool) -> dict:
     res = pipe.all_pairs(src, g, n, verify_ids=verify)
     wall = time.perf_counter() - t0
     launches = {k: v.launches for k, v in build.KERNELS.items()}
+    # phase 12(d): the route's int32 matrix download in turns with an int16
+    # one of the same matrix (cast on the device, widened by numpy), which
+    # the port does not take: the record for pinned-buffer work
+    m = torch.from_numpy(res.inter).to("cuda")
+    need(int(res.inter.max()) <= 32767, "phase 12d: a count past int16")
+    narrow = m.to(torch.int16)
+    turns = {"int32": lambda: m.cpu().numpy(),
+             "int16": lambda: narrow.cpu().numpy().astype(np.int32)}
+    need(np.array_equal(turns["int16"](), res.inter),
+         "phase 12d: the int16 download differs")
+    times = {k: [] for k in turns}
+    for k in ("int32", "int16", "int16", "int32", "int32", "int16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        turns[k]()
+        times[k].append((time.perf_counter() - t0) * 1e3)
+    download = {"bytes": nbytes(m), "int16_bytes": nbytes(narrow),
+                "turns_ms": times}
+    del m, narrow
+    print(f"phase 12d: phase 8b's {g} x {g} matrix download in turns [ms] "
+          f"{json.dumps(times)} (int32: {download['bytes']} bytes, the "
+          f"route's; int16: {download['int16_bytes']} bytes cast on the "
+          f"device and widened by numpy)")
     print(f"phase 8b: DevicePipeline.all_pairs, {g} device genomes of {n} "
           f"codes: {wall:.3f} s wall; phases " + json.dumps(res.phases)
           + f"; cache width {res.cache_cap}; launches "
@@ -2038,7 +2089,7 @@ def run_config4_device(seed, pool) -> dict:
           f"{time.perf_counter() - t0:.3f} s; counts "
           f"{int(res.counts.min())}-{int(res.counts.max())}")
     return {"launches": launches, "wall_s": wall, "phases": res.phases,
-            "profile": prof}
+            "profile": prof, "download": download}
 
 
 # --- phase 11: the port's bench ----------------------------------------------
@@ -2084,6 +2135,278 @@ def run_bench() -> dict:
                 launches[key] += n
             lines[label] = line
     return {"launches": launches, "lines": lines}
+
+
+# --- phase 12: the store, resumed sweeps, ring pairing, out of core ---------
+
+def launch_counts() -> dict:
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    return {k: v.launches for k, v in build.KERNELS.items()}
+
+
+def add_launches(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def run_resumed_sweep(paths, tmp: pathlib.Path) -> dict:
+    """Phase 12(a): the CLI's 62-config sweep on genomes 0 and 1 with
+    --store, which must write phase 4's CSV bytes; the CSV cut inside a
+    config (31 configs and 2 rows, as a kill leaves it), then the same
+    command again, which must complete it to phase 4's bytes from the
+    store alone (no K1 launch)."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    want = (tmp / "sweep.csv").read_bytes()
+    out, store = tmp / "sweep_store.csv", tmp / "store12a"
+    argv = [str(out), *paths, "--store", str(store), "--device", "cuda"]
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_cli(argv)
+    wall = time.perf_counter() - t0
+    first = launch_counts()
+    need(out.read_bytes() == want,
+         "phase 12a: the sweep with --store != phase 4's CSV")
+    need(first["K1"] > 0, "phase 12a: the first sweep launched no K1")
+    lines = want.splitlines(keepends=True)
+    cut = 1 + 31 * 4 + 2
+    out.write_bytes(b"".join(lines[:cut]))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_cli(argv)
+    wall2 = time.perf_counter() - t0
+    second = launch_counts()
+    need(out.read_bytes() == want,
+         "phase 12a: the resumed sweep != phase 4's CSV")
+    need(second["K1"] == 0,
+         f"phase 12a: the resumed sweep launched K1 {second['K1']} times")
+    print(f"phase 12a: the 62-config sweep with --store: {wall:.3f} s wall, "
+          f"launches {json.dumps(first)}; cut after {cut - 1} of "
+          f"{len(lines) - 1} rows and resumed: {wall2:.3f} s wall, launches "
+          f"{json.dumps(second)}; both CSVs are phase 4's bytes")
+    return {"launches": add_launches(first, second), "wall_s": wall,
+            "resume_wall_s": wall2}
+
+
+def run_config2_store_and_ring(paths, tmp: pathlib.Path) -> dict:
+    """Phase 12(b): config 2's genomes through the CLI with --store twice
+    (the second run must launch no K1 and both must write phase 5's CSV
+    bytes), then with --pairing ring: 100 rows, row i phase 5's row
+    (i, i+1 mod 100)."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    want = (tmp / "config2.csv").read_bytes()
+    args = ["--window", "20", "--k", "16", "--device", "cuda"]
+    runs, walls = [], []
+    for r in range(2):
+        out = tmp / f"config2_store{r}.csv"
+        build.reset_launches()
+        t0 = time.perf_counter()
+        run_cli([str(out), *paths, *args, "--store", str(tmp / "store12b")])
+        walls.append(time.perf_counter() - t0)
+        runs.append(launch_counts())
+        need(out.read_bytes() == want,
+             f"phase 12b: config 2 with --store (run {r}) != phase 5's CSV")
+    need(runs[0]["K1"] > 0, "phase 12b: the first --store run launched no K1")
+    need(runs[1]["K1"] == 0,
+         f"phase 12b: the cached run launched K1 {runs[1]['K1']} times")
+    out = tmp / "config2_ring.csv"
+    build.reset_launches()
+    t0 = time.perf_counter()
+    _, s_ms, c_ms = run_cli([str(out), *paths, *args, "--pairing", "ring"])
+    ring_wall = time.perf_counter() - t0
+    ring = launch_counts()
+    need(ring["K1"] > 0, "phase 12b: the ring run launched no K1")
+    full = want.decode().splitlines()
+    rows = out.read_text().splitlines()
+    g = len(paths)
+    need(rows[0] == full[0] and len(rows) == 1 + g,
+         f"phase 12b: the ring CSV has {len(rows)} lines")
+    for i in range(g):
+        need(rows[1 + i] == full[1 + i * g + (i + 1) % g],
+             f"phase 12b: ring row {i} != phase 5's row ({i}, {(i + 1) % g})")
+    print(f"phase 12b: config 2 with --store: {walls[0]:.3f} s, then "
+          f"{walls[1]:.3f} s from the store, launches {json.dumps(runs[0])} "
+          f"then {json.dumps(runs[1])}; --pairing ring: {ring_wall:.3f} s "
+          f"wall, sketching {s_ms} ms, comparison {c_ms} ms, launches "
+          f"{json.dumps(ring)}; every CSV row is phase 5's")
+    return {"launches": add_launches(*runs, ring), "walls_s": walls,
+            "ring_wall_s": ring_wall}
+
+
+def run_profile_flag(paths, tmp: pathlib.Path) -> dict:
+    """Phase 12(e): the CLI on config 1 with --profile DIR: the trace it
+    writes must name the port's kernels, and the CSV must be phase 3's
+    config-1 bytes."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    out, trace_dir = tmp / "cfg1_profiled.csv", tmp / "trace12e"
+    build.reset_launches()
+    t0 = time.perf_counter()
+    run_cli([str(out), *paths, "--window", "20", "--k", "16", "--device",
+             "cuda", "--profile", str(trace_dir)])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(out.read_bytes() == (tmp / "cfg1_cold.csv").read_bytes(),
+         "phase 12e: the profiled CSV != phase 3's config-1 CSV")
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    need(len(traces) == 1, f"phase 12e: {len(traces)} trace files")
+    names = set()
+    for e in json.loads(traces[0].read_text()).get("traceEvents", []):
+        m = re.search(r"sks::(?:\(anonymous namespace\)::)?(\w+)",
+                      str(e.get("name", "")))
+        if e.get("cat") == "kernel" and m:
+            names.add(m.group(1))
+    need("slide_kernel" in names and "reg_tile_sort_kernel" in names,
+         f"phase 12e: the trace names the kernels {sorted(names)}")
+    print(f"phase 12e: config 1 with --profile: {wall:.3f} s wall, trace "
+          f"{traces[0].name} ({traces[0].stat().st_size} bytes) names "
+          f"{sorted(names)}; launches {json.dumps(launches)}")
+    return {"launches": launches, "wall_s": wall}
+
+
+def run_out_of_core(rng, pool) -> dict:
+    """Phase 12(c): blocked_all_pairs on OUT_OF_CORE's host sketches
+    (16,512 of ~25,000 40-bit keys at capacity 32,768, kw = 2), drawn from
+    clade pools as phase 6 draws them, at the default budgets: the slab
+    and cache would pass CACHE_BUDGET_BYTES, so the out-of-core schedule
+    runs.  Checks: symmetry, the counts on the diagonal, blocks 0 and the
+    last whole and 2,000 seeded pairs against native merges, the leading
+    4,096 x 4,096 block against the in-core route on the first 32 blocks,
+    and one K10 and one K6 launch a tile.  Then the sketcher's route over
+    the same keys as Sketch objects (all_pairs_intersections: past the
+    budget by their own size, a provider that stacks each block from the
+    host sketches): the same presorts, launches and matrix bit for bit."""
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher, Sketch)
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    g, cap, count, pool_n = (OUT_OF_CORE[k] for k in ("genomes", "cap",
+                                                      "count", "pool"))
+    clades, key_bits = 64, 40
+    block = allpairs.BLOCK
+    t0 = time.perf_counter()
+    steps = rng.integers(1, (1 << key_bits) // pool_n, (clades, pool_n),
+                         dtype=np.int64)
+    pools = np.cumsum(steps, axis=1).astype(np.uint64)   # ascending, unique
+    words = [(pools & np.uint64(M32)).astype(np.uint32),
+             (pools >> np.uint64(32)).astype(np.uint32)]
+    keys = np.full((g, cap, 2), M32, np.uint32)
+    counts = np.empty(g, np.int64)
+    for i in range(g):
+        c = (i // 32) % clades
+        pick = rng.random(pool_n) < count / pool_n
+        counts[i] = n = int(pick.sum())
+        keys[i, :n, 0] = words[0][c][pick]
+        keys[i, :n, 1] = words[1][c][pick]
+    need_bytes = allpairs.slab_cache_bytes(g, cap, 2, key_bits)
+    print(f"phase 12c data: {g} host sketches of {counts.min()}-"
+          f"{counts.max()} keys at capacity {cap} ({keys.nbytes} bytes) in "
+          f"{time.perf_counter() - t0:.3f} s; the in-core slab and cache "
+          f"would need {need_bytes} bytes, the budget is "
+          f"{allpairs.CACHE_BUDGET_BYTES}")
+    need(need_bytes > allpairs.CACHE_BUDGET_BYTES and counts.max() <= cap
+         and counts.max() > cap // 2, "phase 12c: the data misses its size")
+
+    def run():
+        return allpairs.blocked_all_pairs(keys, key_bits=key_bits,
+                                          device="cuda")
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    build.reset_launches()
+    observability.reset_counters()
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    stats = observability.counters()
+    nb = -(-g // block)
+    tiles = nb * (nb + 1) // 2
+    presorts, hits = stats.get("blocked_presorts", 0), stats.get(
+        "blocked_cache_hits", 0)
+    print(f"phase 12c: blocked_all_pairs over {g} host sketches (out of "
+          f"core, {nb} blocks, {tiles} tiles): {wall:.3f} s wall; "
+          f"{presorts} block presorts, {hits} column-cache hits; launches "
+          + json.dumps(launches))
+    need(presorts > 0 and presorts + hits == tiles,
+         "phase 12c: the out-of-core schedule did not run")
+    need(launches["K5"] > 0, "K5 was not launched by phase 12c")
+    for key in ("K10", "K6"):
+        need(launches[key] == tiles,
+             f"phase 12c: {key} launched {launches[key]} times, not {tiles}")
+    prof = profile_path("phase 12c", run)
+
+    t0 = time.perf_counter()
+    need(out.shape == (g, g) and out.dtype == np.int32, "matrix shape/type")
+    need(np.array_equal(np.diag(out), counts), "diagonal != sketch sizes")
+    need(np.array_equal(out, out.T), "matrix not symmetric")
+    last = nb - 1
+    pairs = [(a, b) for a in range(block)
+             for b in range(last * block, min(g, (last + 1) * block))]
+    pairs += [tuple(p) for p in rng.integers(0, g, (2000, 2))]
+
+    def u64(x):
+        v = keys[x, :counts[x], 0].astype(np.uint64) | (
+            keys[x, :counts[x], 1].astype(np.uint64) << np.uint64(32))
+        return np.stack([v, np.zeros_like(v)], 1)
+
+    def merge(ab):
+        a, b = ab
+        return counts[a] if a == b else native.intersect_sorted(u64(a),
+                                                                u64(b))
+    got = [int(out[a, b]) for a, b in pairs]
+    want = list(pool.map(merge, pairs))
+    bad = [(p, x, y) for p, x, y in zip(pairs, got, want) if x != y]
+    need(not bad, f"{len(bad)} pairs differ from native merges: {bad[:5]}")
+    lead = OUT_OF_CORE["lead_blocks"] * block
+    observability.reset_counters()
+    t1 = time.perf_counter()
+    in_core = allpairs.blocked_all_pairs(keys[:lead], key_bits=key_bits,
+                                         device="cuda")
+    in_core_wall = time.perf_counter() - t1
+    need("blocked_presorts" not in observability.counters(),
+         "phase 12c: the first 32 blocks did not take the in-core route")
+    need(np.array_equal(in_core, out[:lead, :lead]),
+         "phase 12c: the leading block != the in-core route")
+    nonzero = sum(x > 0 for x in got)
+    print(f"checks: diagonal, symmetry, {len(pairs)} pairs (blocks 0 x "
+          f"{last} whole, {nonzero} nonzero) equal native merges, and the "
+          f"leading {lead} x {lead} block equals the in-core route "
+          f"({in_core_wall:.3f} s) bit for bit, in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # the sketcher's route; a Sketch holds the keys' two low words, all
+    # that the sketcher stacks at window 20 (40-bit keys)
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    sketches = [Sketch(keys=keys[i, :counts[i]], count=int(counts[i]),
+                       window=20, mask=sk.mask) for i in range(g)]
+    stacked = []
+    stack = sk.stack_sketches
+    sk.stack_sketches = lambda s: (stacked.append(len(s)), stack(s))[1]
+    build.reset_launches()
+    observability.reset_counters()
+    t0 = time.perf_counter()
+    via = sk.all_pairs_intersections(sketches)
+    sk_wall = time.perf_counter() - t0
+    sk_launches = launch_counts()
+    stats = observability.counters()
+    print(f"phase 12c: FracMinHashSketcher.all_pairs_intersections over the "
+          f"same {g} sketches: {sk_wall:.3f} s wall; "
+          f"{stats.get('blocked_presorts', 0)} block presorts, "
+          f"{stats.get('blocked_cache_hits', 0)} column-cache hits; launches "
+          + json.dumps(sk_launches))
+    need(not stacked, "phase 12c: the sketcher stacked the whole slab")
+    need((stats.get("blocked_presorts"), stats.get("blocked_cache_hits"))
+         == (presorts, hits), "phase 12c: the sketcher's schedule differs")
+    need(sk_launches["K5"] > 0 and sk_launches["K10"] == tiles
+         and sk_launches["K6"] == tiles,
+         "phase 12c: the sketcher's route missed K5, K10 or K6")
+    need(np.array_equal(via, out),
+         "phase 12c: the sketcher's matrix != blocked_all_pairs'")
+    return {"launches": add_launches(launches, sk_launches), "wall_s": wall,
+            "sketcher_wall_s": sk_wall, "presorts": presorts,
+            "cache_hits": hits, "profile": prof}
 
 
 def main(argv=None) -> int:
@@ -2161,6 +2484,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             fb = run_fallbacks(paths[0], rng, pool)
             print(f"phase 10: {time.perf_counter() - t0:.3f} s in all")
+            # phase 12(a) and (e): a killed and resumed sweep, --profile
+            t0 = time.perf_counter()
+            resumed = run_resumed_sweep(paths[:2], pathlib.Path(tmp))
+            profiled = run_profile_flag(paths[:2], pathlib.Path(tmp))
+            print(f"phase 12a, 12e: {time.perf_counter() - t0:.3f} s in all")
         for key in ("K1", "K2", "K3", "K4"):
             need(run["launches"][key] > 0,
                  f"{key} was not launched by the main path")
@@ -2171,7 +2499,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             cfg2 = run_config2(pathlib.Path(tmp), rng, pool)
-        print(f"phase 5: {time.perf_counter() - t0:.3f} s in all")
+            print(f"phase 5: {time.perf_counter() - t0:.3f} s in all")
+            # phase 12(b): config 2 with --store, then --pairing ring
+            t0 = time.perf_counter()
+            store_ring = run_config2_store_and_ring(cfg2["paths"],
+                                                    pathlib.Path(tmp))
+            print(f"phase 12b: {time.perf_counter() - t0:.3f} s in all")
         # phase 6: the blocked route at G = 4,096
         t0 = time.perf_counter()
         blk = run_blocked(rng, pool)
@@ -2187,12 +2520,17 @@ def main(argv=None) -> int:
             cfg4 = run_config4_cli(pathlib.Path(tmp), args.seed, pool)
         cfg4b = run_config4_device(args.seed, pool)
         print(f"phase 8: {time.perf_counter() - t0:.3f} s in all")
+        # phase 12(c): the out-of-core schedule past the device budget
+        t0 = time.perf_counter()
+        ooc = run_out_of_core(rng, pool)
+        print(f"phase 12c: {time.perf_counter() - t0:.3f} s in all")
     # phase 11: the port's bench, one subprocess a run
     t0 = time.perf_counter()
     bench = run_bench()
     print(f"phase 11: {time.perf_counter() - t0:.3f} s in all")
 
-    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb, bench)
+    paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb, bench, resumed,
+             store_ring, ooc, profiled)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
@@ -2261,6 +2599,22 @@ def main(argv=None) -> int:
     print(f"config 3 ({CONFIG3_SEEDS} seeds over each of config 1's 2 "
           f"genomes): {cfg3['wall_s']} s wall, {cfg3['rates']} "
           f"window-seeds/s; {smi}")
+    dl = cfg4b["download"]
+    prof = ooc["profile"]
+    print(f"phase 12: the 62-config sweep with --store "
+          f"{resumed['wall_s']:.3f} s, resumed from a cut "
+          f"{resumed['resume_wall_s']:.3f} s; config 2 with --store "
+          f"{store_ring['walls_s'][0]:.3f} s, from the store "
+          f"{store_ring['walls_s'][1]:.3f} s, ring "
+          f"{store_ring['ring_wall_s']:.3f} s; out of core at G = "
+          f"{OUT_OF_CORE['genomes']}: {ooc['wall_s']:.3f} s wall "
+          f"(the sketcher's route {ooc['sketcher_wall_s']:.3f} s), "
+          f"{ooc['presorts']} presorts, {ooc['cache_hits']} cache hits, "
+          f"device sums [ms, launches] K5 {prof['K5']}, K10 {prof['K10']}, "
+          f"K6 {prof['K6']}; phase 8b's matrix download in turns "
+          f"{json.dumps(dl['turns_ms'])} ms (int32, int16); --profile on "
+          f"config 1 "
+          f"{profiled['wall_s']:.3f} s; {smi}")
     print("bench (phase 11): " + "; ".join(
         f"{label} {line['metric']} {line['value']} {line['unit']}"
         for label, line in bench["lines"].items()) + f"; {smi}")

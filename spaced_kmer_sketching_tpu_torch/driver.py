@@ -15,26 +15,33 @@ Mirrors src/kmer-sketching.cpp:151-240, as the JAX package's driver does:
 `--platform`: `cuda` without a GPU raises, `cpu` runs the kernels' plain
 PyTorch versions.  Collections of more than _PIPELINE_MIN_GENOMES genomes
 on a GPU take the one-flow device pipeline (pipeline.py), as the JAX driver
-routes them; its CSV is the two-step path's byte for byte.  The JAX
-driver's `--pairing ring`, `--store`, `--profile` and `--mesh`, and its
-SKS_DEVICE_PIPELINE knob, are not ported (ROADMAP.md).
+routes them; its CSV is the two-step path's byte for byte.  As in the JAX
+driver, `--pairing ring` writes the adjacent pairs (i, i+1 mod n) by the
+probe, `--store DIR` checkpoints sketches and lets a killed sweep resume
+at pair level, and `--profile DIR` writes a profiler trace (torch.profiler
+here).  The JAX driver's `--mesh` and its SKS_DEVICE_PIPELINE knob are not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .config import SketchConfig
 from .csvout import write_to_csv
-from .generators import all_pair_indices
-from .models.fracminhash import FracMinHashSketcher
+from .generators import all_pair_indices, ring_pair_indices
+from .models.fracminhash import FracMinHashSketcher, Sketch
+from .observability import get_logger
 from .pipeline import all_pairs_from_files
+
+log = get_logger(__name__)
 
 
 #: collections above this size route through the device pipeline (the
@@ -42,12 +49,16 @@ from .pipeline import all_pairs_from_files
 _PIPELINE_MIN_GENOMES = 512
 
 
-def _use_device_pipeline(sk: FracMinHashSketcher, filenames) -> bool:
-    """Route a collection through the one-flow device pipeline when the
-    sketcher is on a GPU, it has more than _PIPELINE_MIN_GENOMES genomes,
-    no file needs the streaming path, and padding every genome to the
-    largest file at most doubles the device work (the pipeline shapes every
-    genome to the largest file; the two-step path buckets them by size)."""
+def _use_device_pipeline(sk: FracMinHashSketcher, filenames, pairing: str,
+                         store) -> bool:
+    """Route a collection through the one-flow device pipeline when it
+    takes all pairs and no store, the sketcher is on a GPU, it has more
+    than _PIPELINE_MIN_GENOMES genomes, no file needs the streaming path,
+    and padding every genome to the largest file at most doubles the
+    device work (the pipeline shapes every genome to the largest file; the
+    two-step path buckets them by size)."""
+    if pairing != "all" or store is not None:
+        return False
     if sk.device.type != "cuda" or len(filenames) <= _PIPELINE_MIN_GENOMES:
         return False
     try:
@@ -63,9 +74,21 @@ def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
                    output_filename: str, is_append: bool,
                    config: Optional[SketchConfig] = None,
                    sketcher: Optional[FracMinHashSketcher] = None,
-                   echo_timings: bool = True, device="cuda") -> np.ndarray:
+                   echo_timings: bool = True, device="cuda", store=None,
+                   pairing: str = "all", resume_done=None) -> np.ndarray:
     """One (window, k) experiment over `filenames`; returns the flat ANI list
-    in reference pair order (all ordered pairs incl. self, row-major)."""
+    in reference pair order (all ordered pairs incl. self, row-major; with
+    pairing="ring" the adjacent pairs (i, i+1 mod n),
+    src/generators.hpp:21-34).
+
+    `store` (a store.SketchStore) reuses checkpointed sketches and saves
+    new ones.  `resume_done` (a Counter from store.completed_pairs_in_csv,
+    consumed in place) makes the experiment resumable at PAIR level: rows
+    already present in the output CSV are neither recomputed (a
+    fully-finished config skips sketching entirely) nor rewritten, so a
+    killed sweep rerun appends exactly the missing rows in order — the
+    final CSV is byte-identical to an uninterrupted run (the reference's
+    append-mode accumulation contract, src/kmer-sketching.cpp:53-70)."""
     cfg = config or SketchConfig(window=window_size, k=kmer_size)
     if (cfg.window, cfg.k) != (window_size, kmer_size):
         cfg = SketchConfig(window=window_size, k=kmer_size,
@@ -73,9 +96,29 @@ def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
                            nonce=cfg.nonce, hash_variant=cfg.hash_variant,
                            sketch_capacity=cfg.sketch_capacity)
     sk = sketcher or FracMinHashSketcher(cfg, device=device)
+    g = len(filenames)
+    pairs = ring_pair_indices(g) if pairing == "ring" else all_pair_indices(g)
+
+    write_row = None
+    if resume_done is not None:
+        bits = sk.mask.bitstring()
+        write_row = []
+        for i, j in pairs:
+            key = (str(filenames[i]), str(filenames[j]), str(window_size),
+                   bits)
+            if resume_done.get(key, 0) > 0:
+                resume_done[key] -= 1
+                write_row.append(False)
+            else:
+                write_row.append(True)
+        if not any(write_row):
+            log.info("resume: config (w=%d, k=%d) already complete, skipped",
+                     window_size, kmer_size)
+            return np.empty(0)
 
     t0 = time.perf_counter()
-    if _use_device_pipeline(sk, filenames):
+    inter = None
+    if _use_device_pipeline(sk, filenames, pairing, store):
         res = all_pairs_from_files(sk, filenames)
         counts, inter = res.counts, res.inter
         # the pipeline's phases interleave: ingest + sketch + presort count
@@ -84,28 +127,42 @@ def run_experiment(window_size: int, kmer_size: int, filenames: Sequence[str],
         sketch_s = ph["ingest_s"] + ph["sketch_s"] + ph["presort_s"]
         t1 = time.perf_counter() - ph["allpairs_s"]
     else:
-        sketches = sk.sketch_files(filenames)
+        if store is not None:
+            sketches: List[Sketch] = store.sketch_files_resumable(
+                sk, filenames)
+        else:
+            sketches = sk.sketch_files(filenames)
         if sk.device.type == "cuda":
             torch.cuda.synchronize(sk.device)
         t1 = time.perf_counter()
         sketch_s = t1 - t0
         counts = [s.count for s in sketches]
-        inter = sk.all_pairs_intersections(sketches)      # (G, G) int32
     if echo_timings:
         print(f"Time taken for sketching = {sketch_s * 1e3} ms")
 
     counts = np.asarray(counts, dtype=np.int64)
-    g = len(filenames)
-    # ordered pairs row-major: pair (i, j) -> denominator |set_i|
-    pairs = all_pair_indices(g)
-    ani = sk.ani_from_intersections(inter.reshape(-1),
-                                    np.repeat(counts, max(g, 1)))
+    if pairing == "ring":
+        inter_flat = sk.intersections([sketches[i] for i, _ in pairs],
+                                      [sketches[j] for _, j in pairs])
+        ani = sk.ani_from_intersections(
+            np.asarray(inter_flat), np.array([counts[i] for i, _ in pairs]))
+    else:
+        if inter is None:
+            inter = sk.all_pairs_intersections(sketches)  # (G, G) int32
+        # ordered pairs row-major: pair (i, j) -> denominator |set_i|
+        ani = sk.ani_from_intersections(inter.reshape(-1),
+                                        np.repeat(counts, max(g, 1)))
     t2 = time.perf_counter()
     if echo_timings:
         print(f"Time taken for comparison = {(t2 - t1) * 1e3} ms")
-    write_to_csv([str(filenames[i]) for i, _ in pairs],
-                 [str(filenames[j]) for _, j in pairs],
-                 list(map(float, ani)), window_size, sk.mask,
+    names1 = [str(filenames[i]) for i, _ in pairs]
+    names2 = [str(filenames[j]) for _, j in pairs]
+    values = list(map(float, ani))
+    if write_row is not None:
+        names1 = [n for n, w in zip(names1, write_row) if w]
+        names2 = [n for n, w in zip(names2, write_row) if w]
+        values = [v for v, w in zip(values, write_row) if w]
+    write_to_csv(names1, names2, values, window_size, sk.mask,
                  output_filename, is_append)
     return ani
 
@@ -121,12 +178,26 @@ def reference_sweep_schedule():
 
 def run_reference_sweep(output_filename: str, filenames: Sequence[str],
                         config: Optional[SketchConfig] = None,
-                        echo_timings: bool = True, device="cuda") -> None:
-    """The reference's 62-config main loop."""
+                        echo_timings: bool = True, device="cuda",
+                        store=None) -> None:
+    """The reference's 62-config main loop.  With a store and an existing
+    output CSV, the sweep RESUMES: rows already in the CSV are skipped at
+    pair level (fully-finished configs skip sketching entirely; a config
+    killed mid-write appends only its missing rows), so the final CSV is
+    byte-identical to an uninterrupted run."""
+    resume_done = None
+    if store is not None and os.path.exists(output_filename):
+        from .store import completed_pairs_in_csv
+        resume_done = completed_pairs_in_csv(output_filename)
+        if resume_done:
+            log.info("resume: %d rows already in %s",
+                     sum(resume_done.values()), output_filename)
     for window, k, is_append in reference_sweep_schedule():
+        if resume_done:
+            is_append = True       # never truncate a CSV being resumed
         run_experiment(window, k, filenames, output_filename, is_append,
                        config=config, echo_timings=echo_timings,
-                       device=device)
+                       device=device, store=store, resume_done=resume_done)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -148,10 +219,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         default=SketchConfig.hash_variant)
     parser.add_argument("--append", action="store_true",
                         help="append to the CSV (single-experiment mode)")
+    parser.add_argument("--pairing", choices=("all", "ring"), default="all",
+                        help="all: full ordered n^2 incl. self-pairs "
+                             "(reference main); ring: adjacent (i, i+1 mod n)")
+    parser.add_argument("--store", default=None, metavar="DIR",
+                        help="sketch checkpoint directory: reruns reuse "
+                             "already-computed sketches")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler trace to DIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (the kernels; raises "
                              "without a GPU) or cpu (their plain versions)")
     args = parser.parse_args(argv)
+
+    from .utils.hostmem import tune as _malloc_tune
+    _malloc_tune()
 
     if (args.window is None) != (args.k is None):
         parser.error("--window and --k must be given together")
@@ -160,13 +242,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         nonce=args.nonce, mask_seed=args.mask_seed,
         hash_variant=args.hash_variant)
 
+    store = None
+    if args.store:
+        from .store import SketchStore
+        store = SketchStore(args.store)
+
+    ctx = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        ctx = profile(activities=activities,
+                      on_trace_ready=tensorboard_trace_handler(args.profile))
     try:
-        if args.window is not None:
-            run_experiment(args.window, args.k, args.fastas, args.output_csv,
-                           args.append, config=base, device=args.device)
-        else:
-            run_reference_sweep(args.output_csv, args.fastas, config=base,
-                                device=args.device)
+        with ctx:
+            if args.window is not None:
+                run_experiment(args.window, args.k, args.fastas,
+                               args.output_csv, args.append, config=base,
+                               device=args.device, store=store,
+                               pairing=args.pairing)
+            else:
+                run_reference_sweep(args.output_csv, args.fastas,
+                                    config=base, device=args.device,
+                                    store=store)
     except FileNotFoundError as e:
         # reference CLI error parity: an unopenable FASTA prints to stderr
         # and exits 1 (src/fasta_processing.cpp:86-90) — the exact bytes,

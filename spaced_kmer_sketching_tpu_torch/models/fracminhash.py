@@ -15,8 +15,10 @@ sketches are merged on the device (merge_sketches).
 All-pairs intersections are routed by the genome count G, as in the JAX
 package: G <= 8 with the native library takes the host sorted merge;
 8 < G <= 2048 (or G <= 8 without the native library) the device Gram
-(ops/gram.py: K5 merge, K6 scan); larger G the single-device block-cache
-schedule (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile).
+(ops/gram.py: K5 merge, K6 scan); larger G the single-device blocked
+schedules (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile),
+in core while the slab and the presorted cache fit the device budget,
+else out of core from blocks stacked on demand.
 
 `intersections` (pairwise, the reference's pair lists) and
 `all_pairs_intersections_probe` (the cross-check engine) run the
@@ -50,6 +52,7 @@ from ..ops.gram import LANES, _guard_words, gram_all_pairs_ondevice
 from ..ops.intersect import intersection_tile, pair_intersection_batch
 from ..ops.sketch import (finish_words, merge_sketches, sketch_batch_compact,
                           sketch_batch_packed_dyn)
+from ..parallel import allpairs
 from ..parallel.allpairs import blocked_all_pairs
 from ..utils import boosthash, native
 from ..utils.masks import SpacedSeedMask, spaced_seed_mask
@@ -133,6 +136,11 @@ class FracMinHashSketcher:
 
     def sketch_packed(self, packed: PackedSeqs, name: str = "") -> Sketch:
         return self.sketch_packed_batch([packed], names=[name])[0]
+
+    def sketch_file(self, path: str) -> Sketch:
+        """One FASTA's sketch, named by its path, from the whole file (the
+        JAX method): equal to sketch_files([path])[0]."""
+        return self.sketch_packed(read_fasta(path), name=path)
 
     def _dispatch_sketch(self, codes: np.ndarray, run_id: np.ndarray,
                          capacity: int):
@@ -484,11 +492,8 @@ class FracMinHashSketcher:
         padding marks them).  Only the kw = _guard_words(2 * window) low
         key words travel: canonical keys have no bits at or above
         2 * window, and the guard word keeps sentinel detection exact."""
-        kw = _guard_words(2 * self.config.window)
-        cap = max(LANES, _next_pow2(max([s.count for s in sketches] or [1])))
-        keys = np.full((len(sketches), cap, kw), 0xFFFFFFFF, dtype=np.uint32)
-        for i, s in enumerate(sketches):
-            keys[i, :s.count] = s.keys[:, :kw]
+        keys = _stack_host(sketches, _stack_cap(sketches),
+                           _guard_words(2 * self.config.window))
         return torch.from_numpy(keys.view(np.int32)).to(self.device)
 
     def all_pairs_intersections(self, sketches: Sequence[Sketch]) -> np.ndarray:
@@ -496,7 +501,10 @@ class FracMinHashSketcher:
         G <= 8 with the native library: the native sorted merge on the
         downloaded sketches.  Otherwise on the sketcher's device
         (stack_sketches): the Gram engine up to ONDEVICE_MAX_GENOMES, the
-        blocked block-cache schedule above."""
+        blocked schedule above; a collection whose stacked slab and cache
+        would pass the blocked schedule's device budget is not stacked:
+        the blocked schedule stacks each block from the host sketches when
+        it needs it."""
         g = len(sketches)
         if g <= NATIVE_MAX_GENOMES and native.available():
             u64s = [s.keys_u64() for s in sketches]
@@ -507,12 +515,22 @@ class FracMinHashSketcher:
                     out[i, j] = out[j, i] = native.intersect_sorted(
                         u64s[i], u64s[j])
             return out
-        keys = self.stack_sketches(sketches)
         key_bits = 2 * self.config.window
         if g <= ONDEVICE_MAX_GENOMES:
-            return gram_all_pairs_ondevice(keys,
+            return gram_all_pairs_ondevice(self.stack_sketches(sketches),
                                            key_bits=key_bits).cpu().numpy()
-        return blocked_all_pairs(keys, key_bits=key_bits)
+        cap, kw = _stack_cap(sketches), _guard_words(key_bits)
+        if (allpairs.slab_cache_bytes(g, cap, kw, key_bits)
+                <= allpairs.CACHE_BUDGET_BYTES):
+            return blocked_all_pairs(self.stack_sketches(sketches),
+                                     key_bits=key_bits)
+
+        def provider(i0: int, i1: int):
+            part = sketches[i0:i1]
+            return (_stack_host(part, cap, kw),
+                    np.array([s.count for s in part], np.int32))
+        return blocked_all_pairs(provider, g=g, key_bits=key_bits,
+                                 device=self.device)
 
     def _stack_full(self, sketches: Sequence[Sketch], cap: int):
         """Sketches -> (keys (G, cap, 4) int32 all-ones padded, counts (G,)
@@ -564,6 +582,20 @@ class FracMinHashSketcher:
         positions (mask.count()/2, src/kmer-sketching.cpp:164)."""
         c = containment(inter, counts_first)
         return binomial_estimator(c, self.mask.care_positions)
+
+
+def _stack_cap(sketches: Sequence[Sketch]) -> int:
+    """The all-pairs engines' capacity: the power of two >= 128 that holds
+    the largest sketch."""
+    return max(LANES, _next_pow2(max([s.count for s in sketches] or [1])))
+
+
+def _stack_host(sketches: Sequence[Sketch], cap: int, kw: int) -> np.ndarray:
+    """(len, cap, kw) uint32 keys of `sketches`, all-ones padded."""
+    keys = np.full((len(sketches), cap, kw), 0xFFFFFFFF, dtype=np.uint32)
+    for i, s in enumerate(sketches):
+        keys[i, :s.count] = s.keys[:, :kw]
+    return keys
 
 
 def _next_pow2(n: int) -> int:

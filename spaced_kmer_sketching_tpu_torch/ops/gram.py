@@ -4,9 +4,9 @@ The port of the device engine of the JAX package's ops/gram.py.  The G
 sorted sketches are packed with their genome id riding in the low bits of
 the key words, merged into one ascending stream (K5), and the Gram
 matrix -- entry (a, b) = keys shared by genomes a and b, the diagonal the
-sketch sizes -- is read off the stream (K6).  The blocked schedule's
-programs presort each genome block once (K5) and compute macro-tiles from
-two presorted blocks (K10 then K6 in split mode).
+sketch sizes -- is read off the stream (K6).  The blocked schedules'
+programs presort a genome block (K5) and compute a macro-tile from two
+presorted blocks (K10 then K6 in split mode).
 
 Both merges are merge paths (csrc/sort.cu): K5 makes one pass over the
 stream per merge level, log2(G) of them, and K10 one pass a macro-tile,
@@ -27,8 +27,6 @@ host rank-layout engine (build_rank_layout, gram_all_pairs), the bit-tight
 slab transport and gram_rect_ondevice are not ported (ROADMAP.md).
 """
 from __future__ import annotations
-
-from typing import Sequence
 
 import torch
 
@@ -168,24 +166,17 @@ def presort_blocks_packed(slab: torch.Tensor, *, block: int, key_bits: int,
     return cache
 
 
-def gram_pair_tiles(cache: torch.Tensor, ii: Sequence[int],
-                    jj: Sequence[int], *, block: int, gidbits: int
-                    ) -> torch.Tensor:
-    """Macro-tiles from the presorted cache (nb, pw, rows, 128): for each
-    (ii[p], jj[p]) with ii <= jj, the (block, block) int32 intersections
-    of block ii's genomes (rows) with block jj's (columns).  ii == jj
-    yields the full symmetric diagonal tile.  The two streams are merged
-    (K10) with block jj's valid gids offset by +block inside the packed
+def gram_pair_tile(row: torch.Tensor, col: torch.Tensor, *, block: int,
+                   gidbits: int) -> torch.Tensor:
+    """One macro-tile: the (block, block) int32 intersections of the
+    genomes of presorted block `row` (pw, rows, 128) with those of block
+    `col` (the same tensor for a diagonal tile).  The two streams are
+    merged (K10) with col's valid gids offset by +block inside the packed
     gid field as K10 reads them (no carry: local gids are < block <=
     2^(gidbits-1)), and the rect block of the Gram is read at split =
     block (K6)."""
     if block % LANES or (1 << gidbits) < 2 * block:
         raise ValueError(f"block {block} must be a multiple of 128 with "
                          f"2^gidbits >= 2 * block (gidbits {gidbits})")
-    tiles = torch.empty((len(ii), block, block), dtype=torch.int32,
-                        device=cache.device)
-    for p, (i, j) in enumerate(zip(ii, jj)):
-        merged = merge_pair_streams(cache[int(i)], cache[int(j)],
-                                    b_gid_offset=block)
-        tiles[p] = gram_tile_scan(merged, gidbits, 2 * block, split=block)
-    return tiles
+    merged = merge_pair_streams(row, col, b_gid_offset=block)
+    return gram_tile_scan(merged, gidbits, 2 * block, split=block)

@@ -1,92 +1,196 @@
-"""Blocked all-pairs intersections on one GPU: the block-cache schedule.
+"""Blocked all-pairs intersections on one GPU: the block-cache schedule and
+the out-of-core per-tile schedule.
 
-The port of the single-device gram route of the JAX package's
-parallel/allpairs.py (blocked_all_pairs :57 -> _gram_blocked_cached :209
--> pair_tile_sweep :282), which its sketcher takes above 2048 genomes.
-The (G, G) matrix is computed in (block x block) macro-tiles: every
-block's packed (key, gid) stream is merged ONCE into a device-resident
-cache (K5), then each upper-triangle macro-tile is a pair merge of two
-cached streams (K10) and the rect block of their Gram (K6); intersections
-are symmetric, so each tile also fills its mirror.  The reference's
-ordered all-pairs incl. self, src/generators.hpp:45-58.
+The port of the single-device gram routes of the JAX package's
+parallel/allpairs.py (blocked_all_pairs :57, its block-cache schedule
+_gram_blocked_cached :209 -> pair_tile_sweep :282, and its per-tile
+schedule past the budget, :120-194), which its sketcher takes above 2048
+genomes.  The (G, G) matrix is computed in (block x block) macro-tiles:
+each upper-triangle macro-tile is a pair merge of two presorted blocks'
+packed (key, gid) streams (K10) and the rect block of their Gram (K6);
+intersections are symmetric, so each tile also fills its mirror.  The
+reference's ordered all-pairs incl. self, src/generators.hpp:45-58.
 
-Both merges are merge-path kernels (csrc/sort.cu): a block's presort is
-log2(BLOCK) = 7 passes over its stream, a macro-tile's pair merge one
-pass over the two streams with the column block's gid shift folded into
-its loads, so each costs the bytes it moves.
+While the key slab and the presorted cache of every block fit
+CACHE_BUDGET_BYTES, every block is presorted ONCE (K5) into a device-resident
+cache and the tiles are swept over it.  Past it, the out-of-core schedule
+holds O(block) on the device plus a column cache of COL_CACHE_BYTES:
+each row block is uploaded and presorted once, column blocks' presorted
+streams are cached up to that budget (and dropped once their own row is
+done, since no later tile reads them), the rest are uploaded and
+presorted again per tile, and each row of tiles is downloaded into the
+host matrix.  Both give the same matrix bit for bit.
 
-Not ported yet (ROADMAP.md): the bit-tight slab transport, the int16 tile
-download, multi-device round-robin and the store-backed out-of-core
-per-tile schedule.  The probe engine is ops/intersect.py.
+The device matrix is int32 (the JAX sweep's int16 matrix is not ported:
+on the H100 its download was no faster, PERF.md).  The bit-tight slab
+transport and multi-device round-robin are not ported (ROADMAP.md).  The
+probe engine is ops/intersect.py.
 """
 from __future__ import annotations
+
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from ..ops.gram import (_guard_words, gram_pair_tiles, pack_plan,
-                        presort_blocks_packed)
+from ..observability import count as obs_count
+from ..ops.gram import (_guard_words, gram_pair_tile, pack_plan,
+                        presort_block_packed, presort_blocks_packed)
 
-# Device bytes the slab and the presorted cache may take together; the
-# JAX package's default for the same check (SKS_BLOCKED_CACHE_BUDGET).
+# Device bytes the slab and the presorted cache may take together, and the
+# out-of-core schedule's column cache: the JAX package's defaults
+# (SKS_BLOCKED_CACHE_BUDGET and its per-tile schedule's cache budget).
 CACHE_BUDGET_BYTES = 8 << 30
+COL_CACHE_BYTES = 2 << 30
 BLOCK = 128          # genomes per block: the JAX sketcher's choice
+GIDBITS = (2 * BLOCK - 1).bit_length()   # a tile's row and column gids
+
+Provider = Callable[[int, int], tuple]
 
 
-def blocked_all_pairs(keys: torch.Tensor, *, key_bits: int) -> np.ndarray:
-    """(G, G) int32 intersections of keys (G, cap, W) int32 device
-    sketches (sorted unique, all-ones padded; cap a power of two >= 128;
-    key_bits low key bits live) by the block-cache schedule with blocks of
-    BLOCK genomes.  Collections whose slab and cache exceed
-    CACHE_BUDGET_BYTES raise NotImplementedError: they need the
-    store-backed out-of-core schedule, not ported yet."""
-    g, cap, w = keys.shape
+def slab_cache_bytes(g: int, cap: int, words: int, key_bits: int) -> int:
+    """Device bytes of the in-core schedule's key slab and presorted cache
+    for g sketches of capacity cap with `words` key words."""
     nb = max(1, -(-g // BLOCK))
-    gidbits = (2 * BLOCK - 1).bit_length()
-    kw = min(w, _guard_words(key_bits))
-    pw = pack_plan(key_bits, gidbits)
-    need = nb * BLOCK * cap * (kw + pw) * 4
-    if need > CACHE_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"{g} sketches of capacity {cap} need {need} bytes of slab and "
-            f"presorted cache, over the {CACHE_BUDGET_BYTES}-byte budget: "
-            "that needs the store-backed out-of-core per-tile schedule, "
-            "which the PyTorch port does not have yet (ROADMAP.md)")
-    return _gram_blocked_cached(keys[:, :, :kw], key_bits, gidbits, pw)
+    kw = min(words, _guard_words(key_bits))
+    return nb * BLOCK * cap * (kw + pack_plan(key_bits, GIDBITS)) * 4
 
 
-def _gram_blocked_cached(keys: torch.Tensor, key_bits: int, gidbits: int,
-                         pw: int) -> np.ndarray:
-    """Presort every block once into the cache, then sweep the tiles.  A
-    ragged tail block is filled with all-sentinel sketches."""
-    g = keys.shape[0]
-    slab = keys
-    if g % BLOCK:
-        pad = torch.full((BLOCK - g % BLOCK,) + tuple(keys.shape[1:]), -1,
-                         dtype=keys.dtype, device=keys.device)
-        slab = torch.cat([keys, pad])
-    cache = presort_blocks_packed(slab.contiguous(), block=BLOCK,
-                                  key_bits=key_bits, gidbits=gidbits, pw=pw)
-    return pair_tile_sweep(cache, g, gidbits=gidbits)
+def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
+                      key_bits: int, g: Optional[int] = None, device=None,
+                      budget_bytes: Optional[int] = None,
+                      col_cache_bytes: Optional[int] = None) -> np.ndarray:
+    """(G, G) int32 intersections of G sorted-unique sketches (all-ones
+    padded; cap a power of two >= 128; key_bits low key bits live), block
+    by block of BLOCK genomes.  `keys` is one of:
+      * a (G, cap, W) int32 tensor; the work runs on its device;
+      * a host numpy (G, cap, W) uint32 array;
+      * a callable block-provider keys(i0, i1) -> (np keys (i1-i0, cap, W)
+        uint32, np counts), with g= (e.g. reading a store.SketchStore), so
+        the whole slab never materializes on the host either.
+    W >= _guard_words(key_bits); the padding marks each sketch's end, so
+    the counts are not read.  Host keys go to `device` (default cuda).
+    Collections whose slab and cache pass budget_bytes take the
+    out-of-core schedule, its column cache bounded by col_cache_bytes;
+    the two default to CACHE_BUDGET_BYTES and COL_CACHE_BYTES as they
+    stand at the call."""
+    if isinstance(keys, torch.Tensor):
+        g, device = keys.shape[0], keys.device
+        provider = lambda i0, i1: (keys[i0:i1], None)  # noqa: E731
+    elif callable(keys):
+        if g is None:
+            raise ValueError("a block-provider needs g=")
+        provider = keys
+    else:
+        host = np.asarray(keys)
+        g = host.shape[0]
+        provider = lambda i0, i1: (host[i0:i1], None)  # noqa: E731
+    device = torch.device("cuda" if device is None else device)
+    if budget_bytes is None:
+        budget_bytes = CACHE_BUDGET_BYTES
+    if col_cache_bytes is None:
+        col_cache_bytes = COL_CACHE_BYTES
+    first = provider(0, min(g, BLOCK))[0]
+    cap, words = first.shape[1], first.shape[2]
+    kw = min(words, _guard_words(key_bits))
+    pw = pack_plan(key_bits, GIDBITS)
+    nb = -(-g // BLOCK)
+
+    def block_keys(b: int) -> torch.Tensor:
+        return _block(provider, b, g, kw, device)
+
+    if slab_cache_bytes(g, cap, words, key_bits) <= budget_bytes:
+        if isinstance(keys, torch.Tensor) and g % BLOCK == 0 and words == kw:
+            slab = keys.contiguous()      # the caller's slab, used in place
+        else:
+            slab = torch.empty((nb * BLOCK, cap, kw), dtype=torch.int32,
+                               device=device)
+            for b in range(nb):
+                slab[b * BLOCK:(b + 1) * BLOCK] = block_keys(b)
+        cache = presort_blocks_packed(slab, block=BLOCK, key_bits=key_bits,
+                                      gidbits=GIDBITS, pw=pw)
+        del slab
+        return pair_tile_sweep(cache, g, gidbits=GIDBITS)
+    return _out_of_core(block_keys, g, cap, key_bits=key_bits, pw=pw,
+                        col_cache_bytes=col_cache_bytes)
+
+
+def _block(provider: Provider, b: int, g: int, kw: int,
+           device: torch.device) -> torch.Tensor:
+    """Block b's (BLOCK, cap, kw) int32 keys on `device`, a ragged tail
+    filled with all-sentinel sketches."""
+    i0, i1 = b * BLOCK, min(g, (b + 1) * BLOCK)
+    k = provider(i0, i1)[0][:, :, :kw]
+    if not isinstance(k, torch.Tensor):
+        k = torch.from_numpy(
+            np.ascontiguousarray(k, dtype=np.uint32).view(np.int32))
+    k = k.to(device)
+    if k.shape[0] < BLOCK:
+        pad = torch.full((BLOCK - k.shape[0],) + tuple(k.shape[1:]), -1,
+                         dtype=torch.int32, device=device)
+        k = torch.cat([k, pad])
+    return k.contiguous()
+
+
+def _out_of_core(block_keys: Callable[[int], torch.Tensor], g: int, cap: int,
+                 *, key_bits: int, pw: int,
+                 col_cache_bytes: int) -> np.ndarray:
+    """The per-tile schedule: row by row of macro-tiles, each row block
+    presorted once, column blocks from the cache or presorted again; the
+    row's tiles fill a device strip that is downloaded into the host matrix
+    and its mirror.  Counts `blocked_presorts` and `blocked_cache_hits`
+    (observability counters)."""
+    nb = -(-g // BLOCK)
+    block_bytes = pw * BLOCK * cap * 4
+
+    def presort(b: int) -> torch.Tensor:
+        obs_count("blocked_presorts")
+        return presort_block_packed(block_keys(b), key_bits=key_bits,
+                                    gidbits=GIDBITS, pw=pw)
+
+    out = np.empty((g, g), np.int32)
+    cache = {}
+    for bi in range(nb):
+        row = cache.pop(bi, None)         # no later tile reads column bi
+        if row is None:
+            row = presort(bi)
+        else:
+            obs_count("blocked_cache_hits")
+        strip = torch.empty((BLOCK, (nb - bi) * BLOCK), dtype=torch.int32,
+                            device=row.device)
+        for bj in range(bi, nb):
+            col = row if bj == bi else cache.get(bj)
+            if col is None:
+                col = presort(bj)
+                if (len(cache) + 1) * block_bytes <= col_cache_bytes:
+                    cache[bj] = col
+            elif bj != bi:
+                obs_count("blocked_cache_hits")
+            strip[:, (bj - bi) * BLOCK:(bj - bi + 1) * BLOCK] = \
+                gram_pair_tile(row, col, block=BLOCK, gidbits=GIDBITS)
+        r0, r1 = bi * BLOCK, min(g, (bi + 1) * BLOCK)
+        part = strip[:r1 - r0, :g - r0].cpu().numpy()
+        out[r0:r1, r0:] = part
+        out[r0:, r0:r1] = part.T
+    return out
 
 
 def pair_tile_sweep(cache: torch.Tensor, g: int, *, gidbits: int
                     ) -> np.ndarray:
     """Upper-triangle macro-tile sweep over the presorted cache
-    (nb, pw, rows, 128): every tile (gram_pair_tiles) is written with its
-    mirror into a device matrix that is downloaded once at the end (the
-    JAX sweep batches tiles per dispatch and downloads each batch)."""
+    (nb, pw, rows, 128): every tile (gram_pair_tile) is written with its
+    mirror into a device int32 matrix that is downloaded once at the end
+    (the JAX sweep batches tiles per dispatch and downloads each batch)."""
     nb = cache.shape[0]
     full = torch.empty((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
                        device=cache.device)
-    pairs = [(i, j) for i in range(nb) for j in range(i, nb)]
-    tiles = gram_pair_tiles(cache, [i for i, _ in pairs],
-                            [j for _, j in pairs], block=BLOCK,
-                            gidbits=gidbits)
-    for t, (bi, bj) in zip(tiles, pairs):
+    for bi in range(nb):
         rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
-        cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
-        full[rows, cols] = t
-        if bj != bi:
-            full[cols, rows] = t.T
+        for bj in range(bi, nb):
+            cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
+            t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
+                               gidbits=gidbits)
+            full[rows, cols] = t
+            if bj != bi:
+                full[cols, rows] = t.T
     return full[:g, :g].cpu().numpy()

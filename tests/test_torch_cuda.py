@@ -494,6 +494,79 @@ def test_routed_all_pairs_match_native_merge(dev):
     check(out, list(range(0, 150, 7)) + [127, 128, 149])
 
 
+@pytest.mark.parametrize("cap,count", [(128, 100), (32768, 25000)])
+def test_out_of_core_matches_in_core(dev, cap, count):
+    """The out-of-core schedule (budgets shrunk: column-cache hits and
+    re-presorts both happen) against the in-core route on the card, 300
+    genomes in 3 blocks with a ragged tail of 44; at capacity 32,768 one
+    sketch holds exactly 32,768 keys."""
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
+    rng = np.random.default_rng(cap)
+    g = 300
+    pool = np.cumsum(rng.integers(1, 1 << 20, 2 * count)).astype(np.uint64)
+    keys = np.full((g, cap, 2), 0xFFFFFFFF, np.uint32)
+    sizes = []
+    for i in range(g):
+        v = pool[:cap] if i == 7 and cap == 32768 else np.unique(
+            rng.choice(pool, count))[:cap]
+        keys[i, :v.size, 0] = (v & 0xFFFFFFFF).astype(np.uint32)
+        keys[i, :v.size, 1] = (v >> np.uint64(32)).astype(np.uint32)
+        sizes.append(v.size)
+    want = allpairs.blocked_all_pairs(keys, key_bits=40, device=dev)
+    observability.reset_counters()
+    build.reset_launches()
+    got = allpairs.blocked_all_pairs(keys, key_bits=40, device=dev,
+                                     budget_bytes=1,
+                                     col_cache_bytes=2 * 128 * cap * 4)
+    stats = observability.counters()
+    assert (stats["blocked_presorts"], stats["blocked_cache_hits"]) == (4, 2)
+    assert build.KERNELS["K10"].launches == build.KERNELS["K6"].launches == 6
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.diag(got), sizes)
+    if cap == 32768:
+        assert got[7, 7] == 32768
+
+
+def test_sketcher_out_of_core_provider_on_card(dev, monkeypatch):
+    """The sketcher's route past the budget, a provider that stacks each
+    block from the host sketches, launches K5, K10 and K6 on the card and
+    gives the direct call's matrix: 300 genomes in 3 blocks with a ragged
+    tail of 44, the budget constants lowered so that column-cache hits and
+    re-presorts both happen."""
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.models import fracminhash
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
+    rng = np.random.default_rng(12)
+    g, cap = 300, 128
+    pool = np.cumsum(rng.integers(1, 1 << 20, 200)).astype(np.uint64)
+    keys = np.full((g, cap, 2), 0xFFFFFFFF, np.uint32)
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    sketches = []
+    for i in range(g):
+        v = np.unique(rng.choice(pool, 100))
+        words = np.zeros((v.size, 4), np.uint32)
+        words[:, 0] = (v & 0xFFFFFFFF).astype(np.uint32)
+        words[:, 1] = (v >> np.uint64(32)).astype(np.uint32)
+        keys[i, :v.size] = words[:, :2]
+        sketches.append(Sketch(keys=words, count=v.size, window=20,
+                               mask=sk.mask))
+    want = allpairs.blocked_all_pairs(keys, key_bits=40, device=dev)
+    monkeypatch.setattr(fracminhash, "ONDEVICE_MAX_GENOMES", 100)
+    monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 1)
+    monkeypatch.setattr(allpairs, "COL_CACHE_BYTES", 2 * 128 * cap * 4)
+    observability.reset_counters()
+    build.reset_launches()
+    got = sk.all_pairs_intersections(sketches)
+    stats = observability.counters()
+    assert (stats["blocked_presorts"], stats["blocked_cache_hits"]) == (4, 2)
+    assert build.KERNELS["K5"].launches > 0
+    assert build.KERNELS["K10"].launches == build.KERNELS["K6"].launches == 6
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.diag(got),
+                                  [s.count for s in sketches])
+
+
 def raw_batch(rng, g, n, k, real, rid0, short, edges=False):
     """K7 inputs: packed bodies of random codes, `real` sorted run starts
     per genome (the rest padded with the body length; with `edges`, on

@@ -124,15 +124,19 @@ def test_twelve_genome_csv_byte_identical(tmp_path):
 
 
 def test_more_than_8_genomes_raise(tmp_path, fastas, monkeypatch):
-    """Past the blocked schedule's device budget the CLI raises, naming
-    the store-backed out-of-core schedule, which is not ported yet."""
+    """Past the blocked schedule's device budget the CLI takes the
+    out-of-core schedule and writes the JAX CLI's CSV bytes (the name is
+    kept from when this case raised)."""
+    from spaced_kmer_sketching_tpu_torch import observability
     from spaced_kmer_sketching_tpu_torch.models import fracminhash
     from spaced_kmer_sketching_tpu_torch.parallel import allpairs
     monkeypatch.setattr(fracminhash, "ONDEVICE_MAX_GENOMES", 8)
     monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 1 << 10)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        driver.main([str(tmp_path / "o.csv"), *(fastas * 3),
-                     "--window", "12", "--k", "8", "--device", "cpu"])
+    observability.reset_counters()
+    want, got = run_both(tmp_path, fastas * 3, [["--window", "12", "--k",
+                                                 "8"]])
+    assert got == want
+    assert observability.counters()["blocked_presorts"] == 1
 
 
 def test_cuda_device_without_gpu_raises(tmp_path, fastas, monkeypatch):

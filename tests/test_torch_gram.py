@@ -197,9 +197,9 @@ def test_gram_tile_scan_one_key_in_every_genome():
 
 
 def test_gram_pair_tiles_matches_jax():
-    """Presorted block cache + batched macro-tiles (incl. the diagonal
-    tile and an empty sketch) against the JAX programs in interpret
-    mode."""
+    """Presorted block cache + macro-tiles (gram_pair_tile, incl. the
+    diagonal tile and an empty sketch) against the JAX programs
+    (gram_pair_tiles) in interpret mode."""
     rng = np.random.default_rng(71)
     blk, cap, nb, key_bits, gidbits = 128, 128, 2, 62, 8
     keys, _ = sketch_keys(rng, nb * blk, cap, key_bits, pool=300, per=60)
@@ -218,7 +218,9 @@ def test_gram_pair_tiles_matches_jax():
     want = np.asarray(jgram.gram_pair_tiles(
         jcache, jnp.asarray(ii, jnp.int32), jnp.asarray(jj, jnp.int32),
         block=blk, gidbits=gidbits, interpret=True))
-    got = gram.gram_pair_tiles(tcache, ii, jj, block=blk, gidbits=gidbits)
+    got = torch.stack([gram.gram_pair_tile(tcache[i], tcache[j], block=blk,
+                                           gidbits=gidbits)
+                       for i, j in zip(ii, jj)])
     np.testing.assert_array_equal(got.numpy(), want)
     assert got[1, 5].sum() == 0 and got[1, :, 5].sum() == 0
 
@@ -272,11 +274,15 @@ def test_blocked_all_pairs_matches_jax():
 
 
 def test_blocked_all_pairs_over_budget_raises(monkeypatch):
+    """Past the device budget the schedule runs out of core and gives
+    the in-core matrix (the name is kept from when this case raised)."""
     rng = np.random.default_rng(81)
     keys, counts = blocked_inputs(rng, 130, 128, 40)
-    monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 1024)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        allpairs.blocked_all_pairs(i32(keys), key_bits=40)
+    want = allpairs.blocked_all_pairs(i32(keys), key_bits=40)
+    got = allpairs.blocked_all_pairs(i32(keys), key_bits=40,
+                                     budget_bytes=1024)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.diag(got), counts)
 
 
 def as_sketches(keys, counts, window, mask, cls):

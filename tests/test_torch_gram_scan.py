@@ -238,7 +238,7 @@ def test_k6_model_matches_jax(split):
 
 def test_k6_model_split_on_a_diagonal_macro_tile():
     """Split mode over the merged stream of one block with itself, its
-    column gids + 128 (gram_pair_tiles with ii == jj): (a, a + 128) is a's
+    column gids + 128 (gram_pair_tile of a block with itself): (a, a + 128) is a's
     sketch size."""
     rng = np.random.default_rng(5)
     gidbits, blk = 8, 128

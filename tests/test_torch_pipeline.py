@@ -174,7 +174,8 @@ def test_driver_pipeline_csv_is_the_jax_two_step_csv(tmp_path, monkeypatch,
                               echo_timings=False)
     routed = []
     monkeypatch.setattr(driver, "_use_device_pipeline",
-                        lambda sk, f: routed.append(len(f)) or True)
+                        lambda sk, f, pairing, store:
+                        routed.append(len(f)) or True)
     got = tmp_path / "port.csv"
     driver.run_experiment(12, 8, paths, str(got), False,
                           config=SketchConfig(window=12, k=8, scale=5),
@@ -204,17 +205,18 @@ def test_use_device_pipeline_decisions(collection, tmp_path):
                                 _STREAM_THRESHOLD_BYTES=1 << 28)
     cpu = types.SimpleNamespace(device=torch.device("cpu"),
                                 _STREAM_THRESHOLD_BYTES=1 << 28)
-    assert driver._use_device_pipeline(gpu, collection)
-    assert not driver._use_device_pipeline(cpu, collection)
-    assert not driver._use_device_pipeline(gpu, collection[:512])
+    assert driver._use_device_pipeline(gpu, collection, "all", None)
+    assert not driver._use_device_pipeline(cpu, collection, "all", None)
+    assert not driver._use_device_pipeline(gpu, collection[:512], "all", None)
     big = types.SimpleNamespace(device=torch.device("cuda"),
                                 _STREAM_THRESHOLD_BYTES=400)
-    assert not driver._use_device_pipeline(big, collection)
+    assert not driver._use_device_pipeline(big, collection, "all", None)
     skew = tmp_path / "skew.fa"
     skew.write_text(">s\n" + "ACGT" * 50000 + "\n")     # 500x the others
-    assert not driver._use_device_pipeline(gpu, collection + [str(skew)])
+    assert not driver._use_device_pipeline(gpu, collection + [str(skew)],
+                                           "all", None)
     assert not driver._use_device_pipeline(
-        gpu, collection + [str(tmp_path / "missing.fa")])
+        gpu, collection + [str(tmp_path / "missing.fa")], "all", None)
 
 
 def test_mesh_is_not_ported(tmp_path):

@@ -369,8 +369,9 @@ def test_all_pairs_12_related_genomes_matches_jax():
 def test_more_than_8_genomes_needs_k5_k6(monkeypatch):
     """More than 8 genomes go through the device Gram (K5, K6; their plain
     versions on the CPU), empty sketches included; past the blocked
-    schedule's device budget the sketcher raises, naming the store-backed
-    out-of-core schedule that is not ported yet."""
+    schedule's device budget the sketcher takes the out-of-core
+    schedule."""
+    from spaced_kmer_sketching_tpu_torch import observability
     from spaced_kmer_sketching_tpu_torch.parallel import allpairs
     sk = FracMinHashSketcher(SketchConfig(window=12, k=8), device="cpu")
     empty = Sketch(keys=np.empty((0, 4), np.uint32), count=0, window=12,
@@ -379,8 +380,10 @@ def test_more_than_8_genomes_needs_k5_k6(monkeypatch):
                                   np.zeros((9, 9), np.int32))
     monkeypatch.setattr(fracminhash, "ONDEVICE_MAX_GENOMES", 8)
     monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 1 << 10)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        sk.all_pairs_intersections([empty] * 9)
+    observability.reset_counters()
+    np.testing.assert_array_equal(sk.all_pairs_intersections([empty] * 9),
+                                  np.zeros((9, 9), np.int32))
+    assert observability.counters()["blocked_presorts"] == 1
 
 
 def test_streaming_size_files_are_refused(tmp_path, monkeypatch):
