@@ -58,8 +58,10 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      one subprocess a run: sketch and multiseed at their defaults, allpairs
      --ondevice and --probe at G = 128, allpairs --blocked at G = 512,
      stream at 2^25 nt (two segments), e2e from codes at G = 256 and from
-     device genomes at G = 1,024, four at a time; each must exit 0 with a
-     verified line from the gpu that launched the run's kernels;
+     device genomes at G = 1,024, the latter also with --e2e-mesh
+     (MeshDevicePipeline over every local GPU), four at a time; each must
+     exit 0 with a verified line from the gpu that launched the run's
+     kernels;
  12. (a) the CLI's 62-config sweep on genomes 0 and 1 with --store, whose
      CSV must be phase 4's bytes, cut after 31 configs and 2 rows (as a
      kill leaves it) and rerun with the same store: phase 4's bytes again,
@@ -76,7 +78,26 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      Sketch objects (blocks stacked on demand): the same matrix; (d) phase
      8(b)'s int32 matrix download in turns with an int16 one; (e) the CLI
      on config 1 with --profile DIR: the trace must name the kernels and
-     the CSV be phase 3's.
+     the CSV be phase 3's;
+ 13. the multi-GPU layer (parallel/, MeshDevicePipeline) on one card:
+     (a) the CLI with --mesh auto on config 1 in this process at world
+     size 1 over NCCL (RANK=0 WORLD_SIZE=1): a 1 x 1 mesh, both 5.4 Mnt
+     genomes through the sharded K1 batch, phase 3's CSV bytes, then
+     MeshSketcher.sketch_packed on the 1 x 1 mesh sends both through the
+     sequence-parallel ring (K11; each the native scalar pipeline's
+     sketch); (b) the same CLI on config 2: the sharded K1 batch, the
+     matrix by mesh_all_pairs_packed, phase 5's CSV bytes; (c)
+     MeshSketcher on a 2 x 2 mesh whose four slots are cuda:0: config 1's
+     genomes through the compact ring of sketch_packed (each the native
+     scalar pipeline's sketch),
+     chromosome A of config 5 through the mesh's sketch_file_streaming
+     (phase 7's sketch), all_pairs_intersections over config 2's sketches
+     (phase 5's matrix); (d) MeshDevicePipeline on phase 8(b)'s 10,240
+     device genomes on a 1 x 1 and on the 2 x 2 mesh (phase 8(b)'s
+     matrix and counts), each once more under torch.profiler; (e) two
+     processes over gloo, both on cuda:0, running the driver with --mesh
+     auto on config 2 (both CSVs phase 5's bytes).  Slots that share the
+     card run one after another: their walls show no scaling.
 Phase 2 also holds K7 against its plain version at a streaming segment's
 shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
 K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
@@ -105,10 +126,11 @@ Phases 9 and 10 hold every
 sketch to the native scalar pipeline (phase 9 with each seed's mask and
 salt).  The kernels' launch counters are set to 0 before each of the paths
 (phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c, 12a's two runs, 12b's
-three, 12c and 12e; each bench run in its own process) and read after
-it; each kernel must have been launched by the
-path that uses it, and K7 by phases 7, 8a, 8b, 9 and the bench's
-multiseed, stream and e2e runs.
+three, 12c and 12e, 13a-13d's; each bench run and 13e's ranks in their
+own processes) and read after it; each kernel must have been launched by
+the path that uses it, K7 by phases 7, 8a, 8b, 9, 13d and the bench's
+multiseed, stream and e2e runs, and K1, K3-K7, K10 and K11 by phase
+13.
 
 K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
 every pw instance, from cuobjdump -sass).
@@ -188,6 +210,9 @@ BENCH_RUNS = (
                    "256"], ("K7", "K3", "K4", "K5", "K10", "K6")),
     ("e2e device", ["--mode", "e2e", "--e2e-source", "device", "--genomes",
                     "1024"], ("K7", "K3", "K4", "K5", "K10", "K6")),
+    ("e2e device mesh", ["--mode", "e2e", "--e2e-source", "device",
+                         "--genomes", "1024", "--e2e-mesh"],
+     ("K7", "K3", "K4", "K5", "K10", "K6")),
 )
 ROUTE_KERNELS = {"tree": ("K2",), "runs": ("K8", "K5"), "tiled": ("K9",),
                  "sort": ()}
@@ -1505,7 +1530,7 @@ def run_config2(tmp: pathlib.Path, rng, pool) -> dict:
           f"native intersections in {time.perf_counter() - t0:.3f} s; "
           f"containment off the diagonal {off.min():.4f}-{off.max():.4f}")
     return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
-            "wall_s": wall, "paths": paths}
+            "wall_s": wall, "paths": paths, "sketches": sc, "inter": inter}
 
 
 def run_blocked(rng, pool) -> dict:
@@ -1881,7 +1906,7 @@ def run_config5(tmp: pathlib.Path, rng, pool) -> dict:
         [str(tmp / "config5_profiled.csv"), *paths, "--window", "20", "--k",
          "16", "--device", "cuda"]))
     return {"launches": launches, "sketching_ms": s_ms, "comparison_ms": c_ms,
-            "wall_s": wall, "profile": prof}
+            "wall_s": wall, "profile": prof, "paths": pc, "sketches": sc}
 
 
 # --- phase 8: BASELINE config 4 -------------------------------------------
@@ -2089,7 +2114,8 @@ def run_config4_device(seed, pool) -> dict:
           f"{time.perf_counter() - t0:.3f} s; counts "
           f"{int(res.counts.min())}-{int(res.counts.max())}")
     return {"launches": launches, "wall_s": wall, "phases": res.phases,
-            "profile": prof, "download": download}
+            "profile": prof, "download": download, "inter": res.inter,
+            "counts": res.counts}
 
 
 # --- phase 11: the port's bench ----------------------------------------------
@@ -2409,6 +2435,259 @@ def run_out_of_core(rng, pool) -> dict:
             "cache_hits": hits, "profile": prof}
 
 
+# --- phase 13: the multi-GPU layer -------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_card_mesh(shape):
+    """An (r, c) mesh whose every slot is cuda:0: the slots run one after
+    another, so its walls show no scaling; it drives the halo ring, the
+    per-slot presorts and the tile split through the kernels."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(shape, [torch.device("cuda", 0)] * (shape[0] * shape[1]))
+
+
+def run_mesh_cli(label: str, paths, out: pathlib.Path, want: bytes,
+                 kernels=()) -> dict:
+    """13(a), 13(b): the CLI with --mesh auto in this process at world size
+    1 (RANK=0 WORLD_SIZE=1, NCCL): a 1 x 1 mesh whose CSV must be `want`
+    and whose run must launch `kernels`."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.parallel import distributed
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    seen = []
+    orig_init, orig_mesh = (distributed.init_distributed,
+                            distributed.global_mesh)
+
+    def init(*a, **kw):
+        orig_init(*a, **kw)
+        seen.append(torch.distributed.get_backend())
+        seen.append(torch.distributed.get_world_size())
+
+    def mesh(*a, **kw):
+        m = orig_mesh(*a, **kw)
+        seen.append(m.shape)
+        return m
+    distributed.init_distributed, distributed.global_mesh = init, mesh
+    os.environ.update(env)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        _, s_ms, c_ms = run_cli([str(out), *paths, "--window", "20", "--k",
+                                 "16", "--device", "cuda", "--mesh", "auto"])
+    finally:
+        for k in env:
+            os.environ.pop(k)
+        distributed.init_distributed, distributed.global_mesh = (orig_init,
+                                                                 orig_mesh)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(seen == ["nccl", 1, (1, 1)], f"{label}: the job was {seen}")
+    need(not torch.distributed.is_initialized(),
+         f"{label}: the CLI left its process group")
+    need(out.read_bytes() == want, f"{label}: the --mesh CSV differs")
+    for key in kernels:
+        need(launches[key] > 0, f"{key} was not launched by {label}")
+    print(f"{label}: --mesh auto ({seen[0]}, world size {seen[1]}, mesh "
+          f"{seen[2]}): {wall:.3f} s wall, sketching {s_ms} ms, comparison "
+          f"{c_ms} ms; the CSV is the single-device run's bytes; launches "
+          + json.dumps(launches))
+    return {"launches": launches, "wall_s": wall, "sketching_ms": s_ms,
+            "comparison_ms": c_ms}
+
+
+def mesh_sketcher(shape=(2, 2), **kw):
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.parallel.sketcher import MeshSketcher
+    return MeshSketcher(SketchConfig(window=20, k=16), one_card_mesh(shape),
+                        **kw)
+
+
+def run_mesh_ring(label: str, paths, pool, shape) -> dict:
+    """13(a) and the first part of 13(c): config 1's genomes, past the
+    default seq_par_threshold of 2^22 codes, through the compact ring of
+    MeshSketcher.sketch_packed on an (r, c) mesh of cuda:0: each sketch
+    must equal the native scalar pipeline's."""
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    sk = mesh_sketcher(shape)
+    packed = list(pool.map(read_fasta, paths))
+    need(min(pk.codes.size for pk in packed) >= sk.seq_par_threshold,
+         f"{label}: a genome is below seq_par_threshold")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    sketches = [sk.sketch_packed(pk, name=p) for p, pk in zip(paths, packed)]
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(launches["K11"] >= shape[0] * shape[1] * len(paths),
+         f"{label}: K11 launched {launches['K11']} times, not one a chunk")
+    for p, pk, s in zip(paths, packed, sketches):
+        want = native.sketch_codes(pk.codes, pk.run_lens, sk.mask.lo,
+                                   sk.mask.hi, 20, sk.salt, sk.config.scale,
+                                   False)
+        need(s.count > 0 and np.array_equal(s.keys_u64(), want),
+             f"{label}: the ring's sketch of {p} != native scalar pipeline")
+    print(f"{label}: config 1's {len(paths)} genomes "
+          f"({[int(pk.codes.size) for pk in packed]} codes) through the "
+          f"compact ring of a {shape[0]} x {shape[1]} mesh of cuda:0 "
+          f"(MeshSketcher.sketch_packed): {wall:.3f} s wall, "
+          f"{[s.count for s in sketches]} keys, each the native scalar "
+          "pipeline's; launches " + json.dumps(launches))
+    return {"launches": launches, "wall_s": wall}
+
+
+def run_mesh_streaming(path, want) -> dict:
+    """13(c), second part: a config-5 chromosome through the 2 x 2 mesh's
+    sketch_file_streaming (17 segments, each over the ring): the sketch
+    must be phase 7's."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    sk = mesh_sketcher()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = sk.sketch_file_streaming(path, name=path)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(got.count == want.count and np.array_equal(got.keys, want.keys),
+         "13c: the mesh's streamed sketch != phase 7's")
+    need(launches["K11"] >= 4 * 17, f"13c: K11 launched {launches['K11']} "
+         "times, not 4 chunks a segment")
+    print(f"phase 13c: {pathlib.Path(path).name} through the 2 x 2 mesh's "
+          f"sketch_file_streaming: {wall:.3f} s wall, {got.count} keys, "
+          "phase 7's sketch; launches " + json.dumps(launches))
+    return {"launches": launches, "wall_s": wall}
+
+
+def run_mesh_all_pairs(sketches, want) -> dict:
+    """13(c), third part: all_pairs_intersections over config 2's sketches
+    on the 2 x 2 mesh (mesh_all_pairs_packed: one presort of the slab for
+    the one distinct device, the one macro-tile on slot 0): phase 5's
+    matrix."""
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+
+    sk = mesh_sketcher()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    got = sk.all_pairs_intersections(sketches)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    need(np.array_equal(got, want), "13c: the mesh's matrix != phase 5's")
+    for key in ("K5", "K10", "K6"):
+        need(launches[key] > 0, f"{key} was not launched by 13c's all-pairs")
+    print(f"phase 13c: all_pairs_intersections over config 2's "
+          f"{len(sketches)} sketches on the 2 x 2 mesh: {wall:.3f} s wall, "
+          "phase 5's matrix; launches " + json.dumps(launches))
+    return {"launches": launches, "wall_s": wall}
+
+
+def run_mesh_pipeline(seed, want) -> dict:
+    """13(d): MeshDevicePipeline on phase 8(b)'s CONFIG4_GENOMES device
+    genomes, on a 1 x 1 mesh and on the 2 x 2 mesh of cuda:0 (dispatches
+    of 512 genomes from phase 8(b)'s 128-genome batches, so the genomes
+    are the same): both matrices and counts must be phase 8(b)'s.  Each
+    runs once timed and once under torch.profiler."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.pipeline import (
+        MeshDevicePipeline, _DevicePlanes, device_source)
+
+    g, n = CONFIG4_GENOMES, CONFIG4_NT
+    src = device_source(g, n, seed=seed, device="cuda")
+
+    def batches_of_128(s0, s1):
+        parts = [src(a, min(a + 128, s1)) for a in range(s0, s1, 128)]
+        return _DevicePlanes(*(torch.cat([getattr(p, f) for p in parts])
+                               for f in ("p", "bounds", "rid0",
+                                         "valid_len")))
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    out = {"launches": dict.fromkeys(build.KERNELS, 0)}
+    for label, shape in (("1x1", (1, 1)), ("2x2", (2, 2))):
+        pipe = MeshDevicePipeline(sk, one_card_mesh(shape))
+        source = src if shape == (1, 1) else batches_of_128
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = pipe.all_pairs(source, g, n)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        need(np.array_equal(res.counts, want["counts"])
+             and np.array_equal(res.inter, want["inter"]),
+             f"13d: the {label} mesh pipeline's matrix != phase 8(b)'s")
+        for key in ("K7", "K5", "K10", "K6"):
+            need(launches[key] > 0, f"{key} was not launched by 13d {label}")
+        print(f"phase 13d: MeshDevicePipeline on a {label} mesh of cuda:0, "
+              f"{g} device genomes of {n} codes (dispatch {pipe.dispatch}):"
+              f" {wall:.3f} s wall (phase 8b {want['wall_s']:.3f} s); "
+              f"restarts {pipe.restarts}; phases {json.dumps(res.phases)}; "
+              f"phase 8b's matrix; launches " + json.dumps(launches))
+        prof = profile_path(f"phase 13d {label}",
+                            lambda: pipe.all_pairs(source, g, n))
+        out[label] = {"wall_s": wall, "profile": prof,
+                      "restarts": pipe.restarts}
+        out["launches"] = add_launches(out["launches"], launches)
+        del res
+    return out
+
+
+def run_two_gloo_ranks(paths, tmp: pathlib.Path, want: bytes) -> dict:
+    """13(e): two processes over gloo, both on cuda:0, each running the
+    port's driver with --mesh auto on config 2 (rank r owns slot r of a
+    1 x 2 mesh; the collectives stage through host memory): both CSVs must
+    be phase 5's bytes.  Both start at once: a process takes 7-9 s to
+    reach the card."""
+    port = str(free_port())
+    boot = ("import sys, torch\n"
+            "from spaced_kmer_sketching_tpu_torch.parallel.distributed "
+            "import init_distributed\n"
+            "init_distributed(backend='gloo')\n"
+            "from spaced_kmer_sketching_tpu_torch import driver\n"
+            "rc = driver.main(sys.argv[1:])\n"
+            "torch.distributed.destroy_process_group()\n"
+            "sys.exit(rc)\n")
+    outs = [tmp / f"config2_gloo_rank{r}.csv" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", boot, str(outs[r]), *paths, "--window", "20",
+         "--k", "16", "--device", "cuda", "--mesh", "auto"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                 WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0"))
+        for r in range(2)]
+    try:
+        results = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, (so, se)) in enumerate(zip(procs, results)):
+        need(p.returncode == 0, f"13e: rank {r} exited {p.returncode}: "
+             f"{se[-3000:]}")
+        need(outs[r].read_bytes() == want, f"13e: rank {r}'s CSV != phase "
+             "5's")
+    print(f"phase 13e: two gloo ranks on cuda:0, the driver with --mesh auto "
+          f"on config 2: {wall:.3f} s wall for both; both CSVs are phase 5's "
+          "bytes; rank 0: " + " | ".join(results[0][0].splitlines()))
+    return {"wall_s": wall}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2476,6 +2755,16 @@ def main(argv=None) -> int:
             print(f"data: {GENOMES} FASTAs written in "
                   f"{time.perf_counter() - t0:.3f} s")
             run = run_main_path(paths, pathlib.Path(tmp), "cuda", pool)
+            # phase 13(a) and the ring of 13(c): config 1 over a mesh
+            t0 = time.perf_counter()
+            m13a = run_mesh_cli("phase 13a", paths[:2],
+                                pathlib.Path(tmp) / "cfg1_mesh.csv",
+                                (pathlib.Path(tmp) / "cfg1_cold.csv")
+                                .read_bytes(), ("K1", "K3", "K4"))
+            ring13a = run_mesh_ring("phase 13a", paths[:2], pool, (1, 1))
+            ring13c = run_mesh_ring("phase 13c", paths[:2], pool, (2, 2))
+            print(f"phase 13a, 13c ring: {time.perf_counter() - t0:.3f} s "
+                  "in all")
             # phase 9: BASELINE config 3 on config 1's two genomes
             t0 = time.perf_counter()
             cfg3 = run_config3(paths[:2], pool)
@@ -2505,6 +2794,18 @@ def main(argv=None) -> int:
             store_ring = run_config2_store_and_ring(cfg2["paths"],
                                                     pathlib.Path(tmp))
             print(f"phase 12b: {time.perf_counter() - t0:.3f} s in all")
+            # phase 13(b), the all-pairs of 13(c) and 13(e): config 2 over
+            # a mesh
+            t0 = time.perf_counter()
+            want2 = (pathlib.Path(tmp) / "config2.csv").read_bytes()
+            m13b = run_mesh_cli("phase 13b", cfg2["paths"],
+                                pathlib.Path(tmp) / "config2_mesh.csv", want2,
+                                ("K1", "K5", "K10", "K6"))
+            ap13c = run_mesh_all_pairs(cfg2.pop("sketches"),
+                                       cfg2.pop("inter"))
+            g13e = run_two_gloo_ranks(cfg2["paths"], pathlib.Path(tmp), want2)
+            print(f"phase 13b, 13c all-pairs, 13e: "
+                  f"{time.perf_counter() - t0:.3f} s in all")
         # phase 6: the blocked route at G = 4,096
         t0 = time.perf_counter()
         blk = run_blocked(rng, pool)
@@ -2513,13 +2814,25 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             cfg5 = run_config5(pathlib.Path(tmp), rng, pool)
-        print(f"phase 7: {time.perf_counter() - t0:.3f} s in all")
+            print(f"phase 7: {time.perf_counter() - t0:.3f} s in all")
+            # the streaming of 13(c): chromosome A over the mesh's ring
+            t0 = time.perf_counter()
+            st13c = run_mesh_streaming(cfg5["paths"][0],
+                                       cfg5.pop("sketches")[0])
+            print(f"phase 13c streaming: {time.perf_counter() - t0:.3f} s "
+                  "in all")
         # phase 8: BASELINE config 4, the one-flow device pipeline
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             cfg4 = run_config4_cli(pathlib.Path(tmp), args.seed, pool)
         cfg4b = run_config4_device(args.seed, pool)
         print(f"phase 8: {time.perf_counter() - t0:.3f} s in all")
+        # phase 13(d): phase 8(b)'s genomes through MeshDevicePipeline
+        t0 = time.perf_counter()
+        pl13d = run_mesh_pipeline(args.seed, {
+            "inter": cfg4b.pop("inter"), "counts": cfg4b.pop("counts"),
+            "wall_s": cfg4b["wall_s"]})
+        print(f"phase 13d: {time.perf_counter() - t0:.3f} s in all")
         # phase 12(c): the out-of-core schedule past the device budget
         t0 = time.perf_counter()
         ooc = run_out_of_core(rng, pool)
@@ -2529,8 +2842,12 @@ def main(argv=None) -> int:
     bench = run_bench()
     print(f"phase 11: {time.perf_counter() - t0:.3f} s in all")
 
+    phase13 = (m13a, ring13a, ring13c, m13b, ap13c, st13c, pl13d)
+    launches13 = add_launches(*(p["launches"] for p in phase13))
+    for key in ("K1", "K3", "K4", "K5", "K6", "K7", "K10", "K11"):
+        need(launches13[key] > 0, f"{key} was not launched by phase 13")
     paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb, bench, resumed,
-             store_ring, ooc, profiled)
+             store_ring, ooc, profiled, *phase13)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
@@ -2615,6 +2932,25 @@ def main(argv=None) -> int:
           f"{json.dumps(dl['turns_ms'])} ms (int32, int16); --profile on "
           f"config 1 "
           f"{profiled['wall_s']:.3f} s; {smi}")
+    sums13d = {k: json.dumps({n: p["profile"][n] for n in PATH_KERNELS})
+               for k, p in (("1x1", pl13d["1x1"]), ("2x2", pl13d["2x2"]),
+                            ("8b", cfg4b))}
+    print(f"phase 13 (slots of one card run one after another: no "
+          f"scaling): config 1 --mesh auto {m13a['wall_s']:.3f} s "
+          f"(sketching {m13a['sketching_ms']} ms, comparison "
+          f"{m13a['comparison_ms']} ms); config 2 --mesh auto "
+          f"{m13b['wall_s']:.3f} s (sketching {m13b['sketching_ms']} ms, "
+          f"comparison {m13b['comparison_ms']} ms); 1 x 1 ring on config 1 "
+          f"{ring13a['wall_s']:.3f} s; 2 x 2 ring on config 1 "
+          f"{ring13c['wall_s']:.3f} s; chrA streamed over it "
+          f"{st13c['wall_s']:.3f} s; config 2 all-pairs on it "
+          f"{ap13c['wall_s']:.3f} s; MeshDevicePipeline at G = "
+          f"{CONFIG4_GENOMES}: 1x1 {pl13d['1x1']['wall_s']:.3f} s, 2x2 "
+          f"{pl13d['2x2']['wall_s']:.3f} s (phase 8b {cfg4b['wall_s']:.3f} "
+          f"s), device sums [ms, launches] 1x1 {sums13d['1x1']}, 2x2 "
+          f"{sums13d['2x2']}, 8b {sums13d['8b']}"
+          f"; two gloo ranks on config 2 {g13e['wall_s']:.3f} s; launches "
+          f"{json.dumps(launches13)}; {smi}")
     print("bench (phase 11): " + "; ".join(
         f"{label} {line['metric']} {line['value']} {line['unit']}"
         for label, line in bench["lines"].items()) + f"; {smi}")

@@ -20,7 +20,9 @@ the same inputs.
   stream     a synthetic FASTA of --nt codes through sketch_file_streaming,
              cold and warm (K7, the finish, the device merge; config 5);
   e2e        genomes -> (G, G) intersections through pipeline.DevicePipeline
-             from files, host codes or device-drawn genomes (config 4).
+             (or, with --e2e-mesh, pipeline.MeshDevicePipeline over every
+             local device: each GPU, or one CPU slot) from files, host
+             codes or device-drawn genomes (config 4).
 
 Timing: the kernel library is loaded (built by nvcc at first use) before
 anything is timed (`build_s`).  The step modes (sketch, allpairs,
@@ -68,8 +70,9 @@ from .ops.intersect import all_pairs_matrix, intersection_tile
 from .ops.sketch import (_k_slots_for, finish_route, sketch_batch_compact,
                          sketch_batch_packed)
 from .parallel.allpairs import BLOCK, blocked_all_pairs
-from .pipeline import (DevicePipeline, codes_source, device_source,
-                       file_source)
+from .parallel.mesh import make_mesh
+from .pipeline import (DevicePipeline, MeshDevicePipeline, codes_source,
+                       device_source, file_source)
 from .utils import boosthash, hostmem, native
 from .utils.masks import spaced_seed_mask
 
@@ -128,7 +131,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="runs of the e2e flow in one process; the last is "
                          "reported")
     ap.add_argument("--e2e-mesh", action="store_true",
-                    help="not supported: MeshDevicePipeline is not ported")
+                    help="e2e: MeshDevicePipeline over every local device "
+                         "(one block a device a dispatch) in place of "
+                         "DevicePipeline")
     ap.add_argument("--dispatch", type=int, default=128,
                     help="genomes per sketch dispatch in --mode e2e")
     args = ap.parse_args(argv)
@@ -140,9 +145,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     if args.pair_batch is not None:
         ap.error("--pair-batch: the port's tile sweep has no pair batches "
                  "(parallel/allpairs.pair_tile_sweep)")
-    if args.e2e_mesh:
-        ap.error("--e2e-mesh: MeshDevicePipeline (multi-GPU) is not ported "
-                 "yet (ROADMAP.md, Queue 1 item 4)")
     return args
 
 
@@ -569,7 +571,11 @@ def bench_e2e(args, dev: torch.device, build_s=None) -> int:
     g, n = args.genomes, args.nt
     cfg = SketchConfig(window=args.window, k=args.k, scale=args.scale)
     sk = FracMinHashSketcher(cfg, device=dev)
-    pipe = DevicePipeline(sk, dispatch=args.dispatch)
+    if args.e2e_mesh:
+        mesh = make_mesh(devices=None if dev.type == "cuda" else [dev])
+        pipe = MeshDevicePipeline(sk, mesh)
+    else:
+        pipe = DevicePipeline(sk, dispatch=args.dispatch)
     rngv = np.random.default_rng(1)
     verify_ids = [] if args.no_verify else sorted(set(
         int(x) for x in rngv.integers(0, g, size=min(8, g))))
@@ -654,7 +660,8 @@ def bench_e2e(args, dev: torch.device, build_s=None) -> int:
         "baseline_cpu_scalar_pairs_per_s": cpu_rate,
         "source": args.e2e_source, "genomes": g, "nt": n,
         "window": args.window, "k": args.k, "scale": args.scale,
-        "block": BLOCK, "dispatch": args.dispatch,
+        "block": BLOCK, "dispatch": pipe.dispatch,
+        "mesh": list(pipe.mesh.shape) if args.e2e_mesh else None,
         "sketch_cap": res.cache_cap, "wall_s": wall, "phases": res.phases,
         "bytes_h2d": int(res.bytes_h2d), "bytes_d2h": int(res.bytes_d2h),
         "restarts": restarts, "e2e_repeat": max(1, args.e2e_repeat)}

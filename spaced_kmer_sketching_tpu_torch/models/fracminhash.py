@@ -299,7 +299,12 @@ class FracMinHashSketcher:
                 drain_one()
         while pending:
             drain_one()
+        return self._merge_segments(seg_bufs, seg_counts, name)
 
+    def _merge_segments(self, seg_bufs, seg_counts, name: str) -> Sketch:
+        """The streamed segments' device sketches ((cap_i, 4) int32,
+        sentinel padded) merged on the device into one Sketch."""
+        w = self.config.window
         if not seg_bufs:
             return self._empty_sketch(name)
         if len(seg_bufs) == 1:

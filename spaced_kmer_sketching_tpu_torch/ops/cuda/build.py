@@ -17,9 +17,11 @@ the compiler's output (registers, shared memory and spills per kernel, from
 -Xptxas=-v) is kept beside the library as `<name>.log`.
 
 Every C entry launches on the stream it is given, allocates nothing and
-returns cudaGetLastError(); `check` raises on a non-zero value.  Each
-wrapper counts its launches on a `Kernel` record (`KERNELS` lists them), so
-a run can show that its main path went through the kernels.
+returns cudaGetLastError(); the wrappers call it through `launch`, which
+makes the tensors' device the current one for the call and raises on a
+non-zero value.  Each wrapper counts its launches on a `Kernel` record
+(`KERNELS` lists them), so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -220,6 +222,18 @@ def lib():
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry `entry` with `args` and `device`'s current stream,
+    with `device` made the calling thread's current CUDA device for the
+    call, and raise on the CUDA error it returns.  A kernel launches on
+    the current device: a stream of another device is an invalid handle
+    there, so a wrapper called on a tensor of cuda:1 while cuda:0 is
+    current would fail without the guard."""
+    with torch.cuda.device(device):
+        err = getattr(lib(), entry)(*args, stream_ptr(device))
+    check(err, entry)
 
 
 def check(err: int, what: str) -> None:

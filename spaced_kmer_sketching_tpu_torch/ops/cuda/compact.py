@@ -42,11 +42,9 @@ def compact_rows(planes: torch.Tensor, k_out: int, *,
     out = torch.empty((kw, g, r, k_out), dtype=torch.int32, device=dev)
     counts = (torch.empty((g, r), dtype=torch.int32, device=dev)
               if with_counts else None)
-    err = build.lib().sks_compact_rows(
-        planes.data_ptr(), kw, g * r, k_out, out.data_ptr(),
-        counts.data_ptr() if counts is not None else None,
-        build.stream_ptr(dev))
-    build.check(err, "sks_compact_rows")
+    build.launch("sks_compact_rows", dev, planes.data_ptr(), kw, g * r,
+                 k_out, out.data_ptr(),
+                 counts.data_ptr() if counts is not None else None)
     K2.launches += 1
     return out, counts
 
@@ -86,13 +84,10 @@ def compact_global(planes: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(planes)
     if g == 0 or n == 0:
         return out
-    lib = build.lib()
-    scratch = torch.empty(lib.sks_compact_global_scratch(g, n),
+    scratch = torch.empty(build.lib().sks_compact_global_scratch(g, n),
                           dtype=torch.int32, device=dev)
-    err = lib.sks_compact_global(planes.data_ptr(), kw, g, n,
-                                 scratch.data_ptr(), out.data_ptr(),
-                                 build.stream_ptr(dev))
-    build.check(err, "sks_compact_global")
+    build.launch("sks_compact_global", dev, planes.data_ptr(), kw, g, n,
+                 scratch.data_ptr(), out.data_ptr())
     K3.launches += 1
     return out
 

@@ -184,12 +184,11 @@ def extract_compact(packed: torch.Tensor, run_id: torch.Tensor,
                       device=dev)
     rowcnt = torch.empty((y, rows), dtype=torch.int32, device=dev)
     m_lo, m_hi, sv, seeds, _keep = _seed_args(rows_s, mask_words, salt, dev)
-    err = build.lib().sks_extract_compact(
-        packed.data_ptr(), pw, run_id.data_ptr(), n, y, rows, window,
-        m_lo, m_hi, sv, seeds, scale, *fmh_divisor(scale),
+    build.launch(
+        "sks_extract_compact", dev, packed.data_ptr(), pw, run_id.data_ptr(),
+        n, y, rows, window, m_lo, m_hi, sv, seeds, scale, *fmh_divisor(scale),
         int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
-        rowcnt.data_ptr(), build.stream_ptr(dev))
-    build.check(err, "sks_extract_compact")
+        rowcnt.data_ptr())
     K1.launches += 1
     return out, rowcnt
 
@@ -291,13 +290,12 @@ def extract_compact_raw(packed: torch.Tensor, bounds: torch.Tensor,
                       device=dev)
     rowcnt = torch.empty((y, rows), dtype=torch.int32, device=dev)
     m_lo, m_hi, sv, seeds, _keep = _seed_args(rows_s, mask_words, salt, dev)
-    err = build.lib().sks_extract_compact_raw(
-        packed.data_ptr(), pw, bounds.data_ptr(), bounds.shape[1],
-        rid0.data_ptr(), vlen.data_ptr(), y, rows, window, m_lo, m_hi, sv,
-        seeds, scale, *fmh_divisor(scale), int(variant == "legacy"),
-        k_slots, out_words, out.data_ptr(), rowcnt.data_ptr(),
-        build.stream_ptr(dev))
-    build.check(err, "sks_extract_compact_raw")
+    build.launch(
+        "sks_extract_compact_raw", dev, packed.data_ptr(), pw,
+        bounds.data_ptr(), bounds.shape[1], rid0.data_ptr(), vlen.data_ptr(),
+        y, rows, window, m_lo, m_hi, sv, seeds, scale, *fmh_divisor(scale),
+        int(variant == "legacy"), k_slots, out_words, out.data_ptr(),
+        rowcnt.data_ptr())
     K7.launches += 1
     return out, rowcnt
 
@@ -348,12 +346,11 @@ def extract_filter(codes: torch.Tensor, run_id: torch.Tensor,
     canon = torch.empty((4, g, nw), dtype=torch.int32, device=dev)
     keep = torch.empty((g, nw), dtype=torch.bool, device=dev)
     m = [int(x) for x in mask_words]
-    err = build.lib().sks_extract_filter(
-        packed.data_ptr(), packed.shape[1], run_id.data_ptr(), n, g, nw,
-        window, m[0] | m[1] << 32, m[2] | m[3] << 32, salt, scale,
-        *fmh_divisor(scale), int(variant == "legacy"), canon.data_ptr(),
-        keep.data_ptr(), build.stream_ptr(dev))
-    build.check(err, "sks_extract_filter")
+    build.launch(
+        "sks_extract_filter", dev, packed.data_ptr(), packed.shape[1],
+        run_id.data_ptr(), n, g, nw, window, m[0] | m[1] << 32,
+        m[2] | m[3] << 32, salt, scale, *fmh_divisor(scale),
+        int(variant == "legacy"), canon.data_ptr(), keep.data_ptr())
     K11.launches += 1
     return canon, keep
 

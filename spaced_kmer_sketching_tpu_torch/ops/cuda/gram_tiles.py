@@ -57,10 +57,8 @@ def gram_tile_scan(sw: torch.Tensor, gidbits: int, gp: int, *,
     out = torch.zeros((r, gp - c0), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    err = build.lib().sks_gram_tiles(flat.data_ptr(), pw, n, gidbits, gp,
-                                     split or 0, 0, out.data_ptr(),
-                                     build.stream_ptr(dev))
-    build.check(err, "sks_gram_tiles")
+    build.launch("sks_gram_tiles", dev, flat.data_ptr(), pw, n, gidbits, gp,
+                 split or 0, 0, out.data_ptr())
     K6.launches += 1
     return out
 

@@ -68,11 +68,8 @@ def sort_rows(planes: torch.Tensor) -> torch.Tensor:
     kw, g, _ = planes.shape
     out = torch.empty_like(planes)
     scratch = torch.empty_like(planes) if n > MIN_SORT_TILE else None
-    err = build.lib().sks_sort_rows(
-        planes.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), kw, g, n,
-        build.stream_ptr(dev))
-    build.check(err, "sks_sort_rows")
+    build.launch("sks_sort_rows", dev, planes.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), kw, g, n)
     K4.launches += 1
     return out
 
@@ -152,10 +149,8 @@ def merge_pair_streams(pa: torch.Tensor, pb: torch.Tensor, *,
     build.require(pb, "pb", torch.int32, 3, dev)
     pw, rows, _ = pa.shape
     out = torch.empty((pw, 2 * rows, LANES), dtype=torch.int32, device=dev)
-    err = build.lib().sks_merge_pair(pa.data_ptr(), pb.data_ptr(),
-                                     out.data_ptr(), pw, rows * LANES,
-                                     b_gid_offset, build.stream_ptr(dev))
-    build.check(err, "sks_merge_pair")
+    build.launch("sks_merge_pair", dev, pa.data_ptr(), pb.data_ptr(),
+                 out.data_ptr(), pw, rows * LANES, b_gid_offset)
     K10.launches += 1
     return out
 
@@ -196,10 +191,8 @@ def _merge_runs(planes: torch.Tensor, n: int, run: int, seg: int
     build.require(planes, "planes", torch.int32, 3, dev)
     out = torch.empty_like(planes)
     scratch = torch.empty_like(planes)
-    err = build.lib().sks_merge_runs(planes.data_ptr(), out.data_ptr(),
-                                     scratch.data_ptr(), planes.shape[0], n,
-                                     run, seg, build.stream_ptr(dev))
-    build.check(err, "sks_merge_runs")
+    build.launch("sks_merge_runs", dev, planes.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), planes.shape[0], n, run, seg)
     K5.launches += 1
     return out
 
@@ -224,15 +217,13 @@ def sort_runs(planes: torch.Tensor, run: int) -> torch.Tensor:
         return sort_runs_plain(planes, run)
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
-    lib = build.lib()
     out = torch.empty_like(planes)
-    words = lib.sks_sort_runs_scratch(kw, g, m, run)
+    words = build.lib().sks_sort_runs_scratch(kw, g, m, run)
     scratch = torch.empty(words, dtype=torch.int32, device=dev) if words \
         else None
-    err = lib.sks_sort_runs(planes.data_ptr(), out.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(),
-                            kw, g, m, run, build.stream_ptr(dev))
-    build.check(err, "sks_sort_runs")
+    build.launch("sks_sort_runs", dev, planes.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), kw, g, m,
+                 run)
     K8.launches += 1
     return out
 
@@ -272,14 +263,12 @@ def sort_truncate(planes: torch.Tensor, capacity: int) -> torch.Tensor:
         return sort_truncate_plain(planes, capacity)
     dev = planes.device
     build.require(planes, "planes", torch.int32, 3, dev)
-    lib = build.lib()
-    scratch = torch.empty(lib.sks_sort_truncate_scratch(kw, g, m, capacity),
-                          dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        build.lib().sks_sort_truncate_scratch(kw, g, m, capacity),
+        dtype=torch.int32, device=dev)
     out = torch.empty((kw, g, capacity), dtype=torch.int32, device=dev)
-    err = lib.sks_sort_truncate(planes.data_ptr(), scratch.data_ptr(),
-                                out.data_ptr(), kw, g, m, capacity,
-                                build.stream_ptr(dev))
-    build.check(err, "sks_sort_truncate")
+    build.launch("sks_sort_truncate", dev, planes.data_ptr(),
+                 scratch.data_ptr(), out.data_ptr(), kw, g, m, capacity)
     K9.launches += 1
     return out
 

@@ -23,19 +23,33 @@ host matrix.  Both give the same matrix bit for bit.
 
 The device matrix is int32 (the JAX sweep's int16 matrix is not ported:
 on the H100 its download was no faster, PERF.md).  The bit-tight slab
-transport and multi-device round-robin are not ported (ROADMAP.md).  The
-probe engine is ops/intersect.py.
+transport is not ported (ROADMAP.md).  The probe engine is
+ops/intersect.py.
+
+Over a mesh (parallel/mesh.py; the JAX mesh functions :27, :331-407,
+:435-451): `blocked_all_pairs(mesh=...)` presorts every block once per
+distinct device into a replica of the in-core cache and splits the upper
+triangle of macro-tiles contiguously over the slots (mesh_tile_sweep;
+`mesh_all_pairs_packed` pads the capacity and calls it);
+`sharded_all_pairs_fn` and `sharded_ani_fn` tile the probe over the
+("r", "c") grid.  JAX's `sharded_gram_fn` (over
+build_rank_layout) and `sharded_all_pairs_rect_fn` (the probe's blocked
+schedule) are not ported.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..observability import count as obs_count
-from ..ops.gram import (_guard_words, gram_pair_tile, pack_plan,
+from ..ops.gram import (LANES, _guard_words, gram_pair_tile, pack_plan,
                         presort_block_packed, presort_blocks_packed)
+from ..ops.intersect import intersection_tile
+from .distributed import all_reduce
+from .mesh import Mesh, pad_to_multiple, split_range
+from .sketch import gather_slots
 
 # Device bytes the slab and the presorted cache may take together, and the
 # out-of-core schedule's column cache: the JAX package's defaults
@@ -59,7 +73,8 @@ def slab_cache_bytes(g: int, cap: int, words: int, key_bits: int) -> int:
 def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
                       key_bits: int, g: Optional[int] = None, device=None,
                       budget_bytes: Optional[int] = None,
-                      col_cache_bytes: Optional[int] = None) -> np.ndarray:
+                      col_cache_bytes: Optional[int] = None,
+                      mesh: Optional[Mesh] = None) -> np.ndarray:
     """(G, G) int32 intersections of G sorted-unique sketches (all-ones
     padded; cap a power of two >= 128; key_bits low key bits live), block
     by block of BLOCK genomes.  `keys` is one of:
@@ -73,7 +88,10 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
     Collections whose slab and cache pass budget_bytes take the
     out-of-core schedule, its column cache bounded by col_cache_bytes;
     the two default to CACHE_BUDGET_BYTES and COL_CACHE_BYTES as they
-    stand at the call."""
+    stand at the call.  With a `mesh`, each distinct device of this
+    process's slots holds a replica of the in-core cache and the tiles
+    split over the slots (mesh_tile_sweep); the work starts on its first
+    device, and the out-of-core schedule stays there."""
     if isinstance(keys, torch.Tensor):
         g, device = keys.shape[0], keys.device
         provider = lambda i0, i1: (keys[i0:i1], None)  # noqa: E731
@@ -85,6 +103,9 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
         host = np.asarray(keys)
         g = host.shape[0]
         provider = lambda i0, i1: (host[i0:i1], None)  # noqa: E731
+    replicas = [] if mesh is None else mesh.distinct()
+    if replicas:
+        device = replicas[0]
     device = torch.device("cuda" if device is None else device)
     if budget_bytes is None:
         budget_bytes = CACHE_BUDGET_BYTES
@@ -107,6 +128,12 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
                                device=device)
             for b in range(nb):
                 slab[b * BLOCK:(b + 1) * BLOCK] = block_keys(b)
+        if mesh is not None:
+            caches = {d: presort_blocks_packed(
+                slab.to(d), block=BLOCK, key_bits=key_bits, gidbits=GIDBITS,
+                pw=pw) for d in replicas}
+            del slab
+            return mesh_tile_sweep(mesh, caches, g)
         cache = presort_blocks_packed(slab, block=BLOCK, key_bits=key_bits,
                                       gidbits=GIDBITS, pw=pw)
         del slab
@@ -194,3 +221,97 @@ def pair_tile_sweep(cache: torch.Tensor, g: int, *, gidbits: int
             if bj != bi:
                 full[cols, rows] = t.T
     return full[:g, :g].cpu().numpy()
+
+
+# --- over a mesh ------------------------------------------------------------
+
+def mesh_tile_sweep(mesh: Mesh, caches: Dict[torch.device, torch.Tensor],
+                    g: int) -> np.ndarray:
+    """The upper-triangle macro-tiles over `caches` (a replica of the
+    (nb, pw, rows, 128) presorted cache on each distinct device of this
+    process's slots), split contiguously over the flattened slots as
+    P(("r", "c")) splits them.  Each slot computes its tiles on its own
+    device; the tiles and their mirrors land in one matrix on the first
+    device.  The tiles are disjoint, so the ranks' matrices sum to the
+    whole.  A one-slot mesh is pair_tile_sweep."""
+    if mesh.size == 1:
+        (cache,) = caches.values()
+        return pair_tile_sweep(cache, g, gidbits=GIDBITS)
+    nb = next(iter(caches.values())).shape[0]
+    pairs = [(i, j) for i in range(nb) for j in range(i, nb)]
+    pp = pad_to_multiple(len(pairs), mesh.size)
+    first = next(iter(caches))
+    full = torch.zeros((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
+                       device=first)
+    for s in mesh.local_slots():
+        cache = caches[mesh.devices[s]]
+        for bi, bj in pairs[split_range(pp, mesh.size, s)]:
+            t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
+                               gidbits=GIDBITS).to(first)
+            rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
+            cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
+            full[rows, cols] = t
+            if bj != bi:
+                full[cols, rows] = t.T
+    return all_reduce(full[:g, :g]).cpu().numpy()
+
+
+def mesh_all_pairs_packed(mesh: Mesh, keys_np: np.ndarray, *,
+                          key_bits: int) -> np.ndarray:
+    """(G, G) int32 intersections of G sorted-unique sketches (keys (G,
+    cap, W) uint32, all-ones padded) over the mesh: the capacity padded to
+    a power of two >= 128, then blocked_all_pairs(mesh=mesh), which
+    presorts the slab block by block (K5) once per distinct device and
+    splits the macro-tiles (K10, split K6) over the slots.  Equal to the
+    single-device engines.  The JAX function also takes the counts; the
+    padding marks each sketch's end."""
+    g, cap, words = keys_np.shape
+    capp = max(LANES, 1 << max(0, (cap - 1).bit_length()))
+    if capp != cap:
+        slab = np.full((g, capp, words), 0xFFFFFFFF, np.uint32)
+        slab[:, :cap] = keys_np
+        keys_np = slab
+    return blocked_all_pairs(keys_np, key_bits=key_bits, mesh=mesh)
+
+
+def sharded_all_pairs_fn(mesh: Mesh) -> Callable:
+    """(keys (G, cap, W), counts (G,)) -> (G, G) int32 intersections by the
+    probe (ops/intersect.py), G a multiple of both mesh axes: slot (i, j)
+    computes the tile of row block i (rows split over "r") and column
+    block j (columns over "c"); the tiles are gathered to every rank and
+    returned on the CPU."""
+    r, c = mesh.shape
+
+    def run(keys, counts) -> torch.Tensor:
+        keys, counts = torch.as_tensor(keys), torch.as_tensor(counts)
+        g = keys.shape[0]
+        parts = []
+        for s in mesh.local_slots():
+            d = mesh.devices[s]
+            rows, cols = split_range(g, r, s // c), split_range(g, c, s % c)
+            parts.append(intersection_tile(
+                keys[rows].to(d), counts[rows].to(d), keys[cols].to(d),
+                counts[cols].to(d))[None])
+        tiles = gather_slots(parts).cpu()
+        return tiles.reshape(r, c, g // r, g // c).permute(0, 2, 1, 3) \
+            .reshape(g, g)
+    return run
+
+
+def sharded_ani_fn(mesh: Mesh, care_positions: int) -> Callable:
+    """(keys, counts) -> (inter (G, G) int32, ani (G, G) float32): the
+    probe over the mesh, then the reference's containment (denominator the
+    row genome's sketch size, the FIRST of the ordered pair,
+    src/kmer-sketching.cpp:198) and estimator (src/ani_estimation.cpp:
+    24-42) in float32, as the JAX function computes them on the device."""
+    pairs = sharded_all_pairs_fn(mesh)
+    inv_k = 1.0 / float(care_positions)
+
+    def run(keys, counts):
+        inter = pairs(keys, counts)
+        den = torch.as_tensor(counts).cpu().clamp(min=1)[:, None]
+        c = torch.where(inter == 0, 0.0,
+                        inter.to(torch.float32) / den.to(torch.float32))
+        ani = torch.where(c <= 0, 0.0, torch.pow(c, inv_k))
+        return inter, ani
+    return run

@@ -23,9 +23,18 @@ Flow per 128-genome block:
 
 Each block is presorted as soon as it leaves a lookahead window of
 LOOKAHEAD blocks, so raw sketch keys wait in device memory for at most a
-few blocks.  Not ported (ROADMAP.md): `MeshDevicePipeline` (multi-GPU),
-the JAX `_tile_binner` knob, `pair_batch` (the port's tile sweep has no
-batches) and the `block` option (every caller uses 128).
+few blocks.
+
+Given a mesh of one process (JAX pipeline.py:418-725; `MeshDevicePipeline`
+is the JAX name for it) the same flow runs over its slots: each dispatch
+carries one block a slot, sketched (K7, the finish) and presorted (K5) on
+the slot's device; the blocks are padded to the widest, gathered into one
+cache a distinct device, and the macro-tiles (K10, K6) split over the
+slots (allpairs.mesh_tile_sweep).
+
+Not ported (ROADMAP.md): the JAX `_tile_binner` knob, `pair_batch` (the
+port's tile sweep has no batches) and the `block` option (every caller
+uses 128).
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,8 +53,10 @@ from .models.fracminhash import FracMinHashSketcher, Sketch
 from .observability import get_logger, span
 from .ops.cuda.extract import pack2bit, packed_body
 from .ops.gram import _guard_words, pack_plan, presort_block_packed
-from .ops.sketch import sketch_batch_compact
-from .parallel.allpairs import BLOCK, pair_tile_sweep
+from .parallel.allpairs import BLOCK, GIDBITS, mesh_tile_sweep
+from .parallel.distributed import world_size
+from .parallel.mesh import Mesh, make_mesh
+from .parallel.sketch import sharded_sketch_compact_fn
 
 log = get_logger(__name__)
 
@@ -133,52 +144,87 @@ def device_source(g: int, n: int, seed: int = 0, device="cuda") -> Callable:
     return load
 
 
+def _pack_host_batch(batch: Sequence[PackedSeqs], n: int):
+    """Host genomes -> the compact upload of the sketch step: (p (g,
+    packed_body(n)/16) int32 2-bit words, bounds (g, K) int32 run starts
+    padded with the body length, rid0 (g,) int32 zeros, vlen (g,) int32)."""
+    body = packed_body(n)
+    g = len(batch)
+    runs_max = max(1, max(pk.run_lens.size - 1 for pk in batch))
+    k = 1 << max(3, (runs_max - 1).bit_length())
+    p = np.empty((g, body // 16), np.uint32)
+    bounds = np.full((g, k), body, np.int32)
+    meta = np.zeros((2, g), np.int32)          # rid0, vlen
+    for i, pk in enumerate(batch):
+        p[i] = pack2bit(pk.codes, body // 16)
+        starts = np.cumsum(pk.run_lens)[:-1]
+        bounds[i, :starts.size] = starts
+        meta[1, i] = pk.codes.size
+    return p.view(np.int32), bounds, meta[0], meta[1]
+
+
 # --- the pipeline -----------------------------------------------------------
 
 class DevicePipeline:
     """End-to-end FASTA/codes -> (G, G) intersections with device-resident
-    sketches on the sketcher's device.  The presort cache holds blocks of
-    allpairs.BLOCK (128) genomes, as the blocked schedule does; `dispatch`
-    genomes ride each sketch step (it and the block divide one another)."""
+    sketches.  The presort cache holds blocks of allpairs.BLOCK (128)
+    genomes, as the blocked schedule does.
 
-    def __init__(self, sketcher: FracMinHashSketcher, *, dispatch: int = 128):
+    Without a mesh everything runs on the sketcher's device and `dispatch`
+    genomes ride each sketch step (it and the block divide one another).
+    With a `mesh` of this one process (JAX pipeline.py:418-725) every
+    dispatch carries one block a slot (`dispatch` = mesh.size * BLOCK),
+    which the slot sketches by the compact step (K7, the finish) and
+    presorts (K5) on its own device; the blocks are gathered into one
+    cache a distinct device and the upper-triangle macro-tiles (K10, K6)
+    split over the slots (allpairs.mesh_tile_sweep).  Multi-rank jobs run
+    MeshSketcher.  Slots that share a device run one after another: they
+    show no scaling."""
+
+    def __init__(self, sketcher: FracMinHashSketcher, *, dispatch: int = 128,
+                 mesh: Optional[Mesh] = None):
+        if mesh is None:
+            mesh = make_mesh((1, 1), [sketcher.device])
+        else:
+            if world_size() > 1 or len(set(mesh.ranks)) > 1:
+                raise ValueError("a mesh pipeline runs in one process; a "
+                                 "multi-rank job takes MeshSketcher")
+            dispatch = mesh.size * BLOCK
         if BLOCK % dispatch and dispatch % BLOCK:
             raise ValueError(f"dispatch {dispatch} and the block {BLOCK} "
                              "must divide one another")
         self.sk = sketcher
+        self.mesh = mesh
         self.dispatch = dispatch
         self.restarts = 0      # whole-run restarts after a sketch overflow
 
     # -- sketch dispatch ------------------------------------------------
     def _dispatch(self, batch, n: int, capacity: int):
-        """Enqueue the compact sketch step (K7) of one genome batch; returns
-        (SketchBatch on the device, bytes uploaded)."""
+        """Enqueue the compact sketch step (K7) of one genome batch on
+        every slot; returns (the slots' SketchBatches, each of an equal
+        share of the rows, and the bytes uploaded).  Over several slots a
+        short batch is padded with empty genomes to a block a slot."""
         cfg = self.sk.config
-        dev = self.sk.device
+        pad_to = self.dispatch if self.mesh.size > 1 else 0
         if isinstance(batch, _DevicePlanes):
             args = (batch.p, batch.bounds, batch.rid0, batch.valid_len)
+            gg = batch.p.shape[0]
+            if gg < pad_to:
+                fills = (0, 16 * batch.p.shape[1], 0, 0)
+                args = tuple(torch.cat([x, torch.full(
+                    (pad_to - gg,) + tuple(x.shape[1:]), f, dtype=x.dtype,
+                    device=x.device)]) for x, f in zip(args, fills))
             h2d = 0
         else:
-            body = packed_body(n)
-            g = len(batch)
-            runs_max = max(1, max(pk.run_lens.size - 1 for pk in batch))
-            k = 1 << max(3, (runs_max - 1).bit_length())
-            p = np.empty((g, body // 16), np.uint32)
-            bounds = np.full((g, k), body, np.int32)
-            meta = np.zeros((2, g), np.int32)          # rid0, vlen
-            for i, pk in enumerate(batch):
-                p[i] = pack2bit(pk.codes, body // 16)
-                starts = np.cumsum(pk.run_lens)[:-1]
-                bounds[i, :starts.size] = starts
-                meta[1, i] = pk.codes.size
-            host = (p.view(np.int32), bounds, meta[0], meta[1])
-            args = tuple(torch.from_numpy(x).to(dev) for x in host)
-            h2d = sum(x.nbytes for x in host)
-        res = sketch_batch_compact(
-            *args, self.sk.mask.words_u32, self.sk.salt, n=n,
-            window=cfg.window, scale=cfg.scale, variant=cfg.hash_variant,
-            capacity=capacity)
-        return res, h2d
+            empty = PackedSeqs(codes=np.empty(0, np.uint8),
+                               run_lens=np.empty(0, np.int64))
+            args = _pack_host_batch(
+                list(batch) + [empty] * (pad_to - len(batch)), n)
+            h2d = sum(x.nbytes for x in args)
+        step = sharded_sketch_compact_fn(
+            self.mesh, n=n, window=cfg.window, salt=self.sk.salt,
+            scale=cfg.scale, variant=cfg.hash_variant, capacity=capacity)
+        return step(*args, self.sk.mask.words_u32), h2d
 
     # -- run --------------------------------------------------------------
     def all_pairs(self, source: Callable, g: int, n: int, *,
@@ -206,12 +252,10 @@ class DevicePipeline:
     def _all_pairs_once(self, source, g: int, n: int, capacity: int,
                         verify_ids) -> PipelineResult:
         cfg = self.sk.config
-        dev = self.sk.device
         block, dispatch = BLOCK, self.dispatch
         key_bits = min(128, 2 * cfg.window)
         kw = min(4, _guard_words(key_bits))
-        gidbits = max(1, (2 * block - 1).bit_length())
-        pw = pack_plan(key_bits, gidbits)
+        pw = pack_plan(key_bits, GIDBITS)
         nb = (g + block - 1) // block
 
         phases = {"ingest_s": 0.0, "sketch_s": 0.0, "presort_s": 0.0,
@@ -219,7 +263,7 @@ class DevicePipeline:
         bytes_h2d = 0
         bytes_d2h = 0
         sample_keys: Dict[int, torch.Tensor] = {}
-        caches: List = [None] * nb   # per-block (pw, rows_b, 128) caches
+        blocks: List = [None] * nb   # per-block (pw, rows_b, 128) caches
         counts = np.zeros(g, np.int32)
         t_start = time.perf_counter()
         # per OPEN block: (index, key parts, raw_kept parts, count parts)
@@ -230,7 +274,7 @@ class DevicePipeline:
             # reading the scalars waits for this block's sketches: device
             # time, booked under sketch_s
             t0 = time.perf_counter()
-            raws = torch.cat(raws_d).cpu().numpy()
+            raws = torch.cat(raws_d).cpu().numpy()    # one slot's rows
             cnt = torch.cat(counts_d).cpu().numpy()
             phases["sketch_s"] += time.perf_counter() - t0
             bytes_d2h += raws.nbytes + cnt.nbytes
@@ -247,10 +291,10 @@ class DevicePipeline:
             kb = torch.cat([p[:, :cap_b] for p in keyparts])
             if kb.shape[0] < block:        # ragged tail: sentinel sketches
                 pad = torch.full((block - kb.shape[0], cap_b, kw), -1,
-                                 dtype=torch.int32, device=dev)
+                                 dtype=torch.int32, device=kb.device)
                 kb = torch.cat([kb, pad])
-            caches[b_idx] = presort_block_packed(
-                kb.contiguous(), key_bits=key_bits, gidbits=gidbits, pw=pw)
+            blocks[b_idx] = presort_block_packed(
+                kb.contiguous(), key_bits=key_bits, gidbits=GIDBITS, pw=pw)
             keyparts.clear()               # frees the raw sketch keys
             phases["presort_s"] += time.perf_counter() - t0
 
@@ -279,23 +323,28 @@ class DevicePipeline:
                 if s1 < g:
                     fut = ex.submit(timed_source, s1, min(g, s1 + dispatch))
                 t0 = time.perf_counter()
-                res, h2d = self._dispatch(batch, n, capacity)
+                parts, h2d = self._dispatch(batch, n, capacity)
                 bytes_h2d += h2d
                 phases["sketch_s"] += time.perf_counter() - t0
-                # route block-aligned slices into per-block pending slots
-                # (dispatch and block divide one another, so a dispatch
-                # never splits a block unevenly)
-                for off in range(0, s1 - s0, block):
-                    b_idx = (s0 + off) // block
-                    lo, hi = off, min(off + block, s1 - s0)
-                    if not pending or pending[-1][0] != b_idx:
-                        pending.append((b_idx, [], [], []))
-                    pending[-1][1].append(res.keys[lo:hi, :, :kw])
-                    pending[-1][2].append(res.raw_kept[lo:hi])
-                    pending[-1][3].append(res.count[lo:hi])
+                # route block-aligned slices of each slot's rows into
+                # per-block pending slots (dispatch and block divide one
+                # another, so a dispatch never splits a block unevenly);
+                # rows past g are padding
+                per = parts[0].count.shape[0]
+                for k, res in enumerate(parts):
+                    p0 = s0 + k * per
+                    for lo in range(0, min(per, s1 - p0), block):
+                        b_idx = (p0 + lo) // block
+                        hi = min(lo + block, s1 - p0)
+                        if not pending or pending[-1][0] != b_idx:
+                            pending.append((b_idx, [], [], []))
+                        pending[-1][1].append(res.keys[lo:hi, :, :kw])
+                        pending[-1][2].append(res.raw_kept[lo:hi])
+                        pending[-1][3].append(res.count[lo:hi])
                 for i in range(s0, s1):
                     if i in verify_ids:
-                        sample_keys[i] = res.keys[i - s0].clone()
+                        k, r = divmod(i - s0, per)
+                        sample_keys[i] = parts[k].keys[r].clone()
                 # finalize blocks that left the lookahead window (complete:
                 # the NEXT block has started receiving parts)
                 while len(pending) > LOOKAHEAD + 1:
@@ -303,16 +352,20 @@ class DevicePipeline:
             while pending:
                 finalize(*pending.pop(0))
             t0 = time.perf_counter()
-            rows_max = max(c.shape[1] for c in caches)
-            cache = torch.full((nb, pw, rows_max, 128), -1,
-                               dtype=torch.int32, device=dev)
-            for b, c in enumerate(caches):
-                # all-ones rows appended to a sorted packed stream keep it
-                # sorted, so the pad to the widest block is exact
-                cache[b, :, :c.shape[1]] = c
-            del caches
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            rows_max = max(c.shape[1] for c in blocks)
+            caches = {}
+            for d in self.mesh.distinct():
+                cache = torch.full((nb, pw, rows_max, 128), -1,
+                                   dtype=torch.int32, device=d)
+                for b, c in enumerate(blocks):
+                    # all-ones rows appended to a sorted packed stream keep
+                    # it sorted, so the pad to the widest block is exact
+                    cache[b, :, :c.shape[1]] = c.to(d)
+                caches[d] = cache
+            del blocks
+            for d in caches:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             phases["presort_s"] += time.perf_counter() - t0
         span_wall = time.perf_counter() - t_span0
         phases["ingest_work_s"] = ingest_work[0]
@@ -332,7 +385,7 @@ class DevicePipeline:
 
         with span("comparison", log):
             t0 = time.perf_counter()
-            out = pair_tile_sweep(cache, g, gidbits=gidbits)
+            out = mesh_tile_sweep(self.mesh, caches, g)
             phases["allpairs_s"] = time.perf_counter() - t0
             bytes_d2h += g * g * 4
 
@@ -342,22 +395,25 @@ class DevicePipeline:
                               sample_keys=samples, cache_cap=cap_p)
 
 
+class MeshDevicePipeline(DevicePipeline):
+    """DevicePipeline over `mesh` (the JAX package's name for it)."""
+
+    def __init__(self, sketcher: FracMinHashSketcher, mesh: Mesh):
+        super().__init__(sketcher, mesh=mesh)
+
+
 def all_pairs_from_files(sketcher: FracMinHashSketcher,
                          paths: Sequence[str], *, dispatch: int = 32,
-                         max_workers: int = 8, mesh=None,
+                         max_workers: int = 8, mesh: Optional[Mesh] = None,
                          verify_ids: Sequence[int] = ()) -> PipelineResult:
     """One-flow FASTA files -> (G, G) intersection matrix with
     device-resident sketches (the reference experiment's sketch+compare
     flow, src/kmer-sketching.cpp:151-212).  The nominal genome length is
     bounded by the largest file size (a FASTA file's code count never
-    exceeds its byte size).  `mesh` is not ported: passing one raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "all_pairs_from_files over a mesh (MeshDevicePipeline) needs the "
-            "multi-GPU slice, which the PyTorch port does not have yet "
-            "(ROADMAP.md, Queue 1: Multi-GPU)")
+    exceeds its byte size).  With `mesh` the flow runs over it
+    (one process; `dispatch` is then one block a slot)."""
     n = max(os.path.getsize(p) for p in paths)
     n = max(n, sketcher.config.window + 1)
-    pipe = DevicePipeline(sketcher, dispatch=dispatch)
+    pipe = DevicePipeline(sketcher, dispatch=dispatch, mesh=mesh)
     return pipe.all_pairs(file_source(paths, max_workers), len(paths), n,
                           verify_ids=verify_ids)

@@ -148,7 +148,6 @@ def test_synthetic_sketches_equal_the_jax_bench(g, cap, window):
 @pytest.mark.parametrize("argv,what", [
     (["--block-size", "256"], "block"),
     (["--pair-batch", "8"], "pair batches"),
-    (["--e2e-mesh"], "Queue 1 item 4"),
     (["--iters", "0"], "iters"),
 ])
 def test_unsupported_flags_exit(argv, what, capsys):

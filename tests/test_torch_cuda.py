@@ -1017,3 +1017,106 @@ def test_bench_sketch_mode_is_verified(dev, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and line["verified"] is True
     assert line["platform"] == "gpu" and line["launches"]["K1"] > 0
+
+
+# --- the multi-GPU layer on one card: meshes whose slots are all cuda:0 -----
+
+def card_mesh(shape):
+    from spaced_kmer_sketching_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(shape, ["cuda:0"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_mesh_ring_on_one_card_matches_single_device(dev, shape):
+    """The full-plane and compact rings (K11 a chunk, the merge: K4, K3)
+    over a mesh of cuda:0 == sketch_core on the whole sequence on the card
+    and the plain ring on the CPU: keys, count and raw_kept; a run start
+    on a chunk edge and a short valid length."""
+    from spaced_kmer_sketching_tpu_torch.ops.sketch import sketch_core
+    from spaced_kmer_sketching_tpu_torch.parallel.mesh import make_mesh
+    from spaced_kmer_sketching_tpu_torch.parallel.sequence import (
+        sequence_parallel_sketch_compact_fn, sequence_parallel_sketch_fn)
+    rng = np.random.default_rng(21)
+    n, window = 1 << 20, 20
+    mask = spaced_seed_mask(window, 16, 0)
+    salt = boosthash.fmh_salt(mask.lo, mask.hi, window, 1, "modern")
+    args = dict(window=window, salt=salt, scale=50, variant="modern",
+                capacity=1 << 15)
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    starts, vlen = [n // 4, 3 * n // 4 + 7], n - 5000
+    bounds = np.full(8, n, np.int32)
+    bounds[:2] = starts
+    rid = np.full(n, -1, np.int32)
+    rid[:vlen] = np.searchsorted(bounds, np.arange(vlen), side="right")
+    build.reset_launches()
+    got = sequence_parallel_sketch_fn(card_mesh(shape), **args)(
+        codes, rid, mask.words_u32)
+    assert build.KERNELS["K11"].launches == shape[0] * shape[1]
+    whole = sketch_core(torch.from_numpy(codes).to(dev),
+                        torch.from_numpy(rid).to(dev), mask.words_u32, **args)
+    plain = sequence_parallel_sketch_fn(make_mesh(shape, ["cpu"] * (
+        shape[0] * shape[1])), **args)(codes, rid, mask.words_u32)
+    p = native.pack2bit(codes, n // 16).view(np.int32)
+    compact = sequence_parallel_sketch_compact_fn(card_mesh(shape), **args)(
+        p, bounds, np.zeros(1, np.int32), np.array([vlen], np.int32),
+        mask.words_u32)
+    assert int(got.raw_kept) <= args["capacity"] and int(got.count) > 0
+    for other in (whole, plain, compact):
+        assert torch.equal(got.keys.cpu(), other.keys.cpu())
+        assert int(got.count) == int(other.count)
+    for other in (plain, compact):
+        assert int(got.raw_kept) == int(other.raw_kept)
+
+
+def test_mesh_sketcher_on_one_card_matches_single_device(dev, tmp_path):
+    """MeshSketcher over a 2 x 2 mesh of cuda:0: sketch_files (the sharded
+    K1 batch), sketch_packed past seq_par_threshold (the ring, K11) and
+    all_pairs_intersections (mesh_all_pairs_packed over 3 blocks) == the
+    single-device sketcher and the native pipeline."""
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import read_fasta
+    from spaced_kmer_sketching_tpu_torch.parallel.sketcher import (
+        MeshSketcher)
+    rng = np.random.default_rng(22)
+    paths = [write_genome(tmp_path / f"g{i}.fa", rng, 20_000 + 3_000 * i,
+                          [500]) for i in range(6)]
+    cfg = SketchConfig(window=20, k=16, scale=20)
+    mesh_sk = MeshSketcher(cfg, card_mesh((2, 2)), seq_par_threshold=30_000)
+    single = FracMinHashSketcher(cfg, device="cuda")
+    build.reset_launches()
+    got = mesh_sk.sketch_files(paths)
+    assert build.KERNELS["K1"].launches > 0
+    assert build.KERNELS["K11"].launches == 0
+    ring = [mesh_sk.sketch_packed(read_fasta(p), name=p) for p in paths]
+    assert build.KERNELS["K11"].launches > 0
+    for p, s, r, w in zip(paths, got, ring, single.sketch_files(paths)):
+        for x in (s, r):
+            assert x.count == w.count and np.array_equal(x.keys, w.keys)
+        np.testing.assert_array_equal(s.keys_u64(),
+                                      native_sketch(single, read_fasta(p)))
+    many = [got[i % 6] for i in range(300)]
+    np.testing.assert_array_equal(mesh_sk.all_pairs_intersections(many),
+                                  single.all_pairs_intersections(many))
+
+
+def test_mesh_pipeline_on_one_card_matches_device_pipeline(dev):
+    """MeshDevicePipeline over a 2 x 2 mesh of cuda:0 (dispatches of 512,
+    one block a slot, the last slots ragged) == DevicePipeline over the
+    same 512-genome batches: counts, matrix, sample keys."""
+    from spaced_kmer_sketching_tpu_torch.pipeline import (
+        DevicePipeline, MeshDevicePipeline, device_source)
+    g, n = 700, 100_000
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
+                             device="cuda")
+    pipe = MeshDevicePipeline(sk, card_mesh((2, 2)))
+    build.reset_launches()
+    res = pipe.all_pairs(device_source(g, n, seed=5), g, n,
+                         verify_ids=[0, 511, 699])
+    for key in ("K7", "K5", "K10", "K6"):
+        assert build.KERNELS[key].launches > 0, key
+    want = DevicePipeline(sk, dispatch=512).all_pairs(
+        device_source(g, n, seed=5), g, n, verify_ids=[0, 511, 699])
+    np.testing.assert_array_equal(res.counts, want.counts)
+    np.testing.assert_array_equal(res.inter, want.inter)
+    for i in (0, 511, 699):
+        np.testing.assert_array_equal(res.sample_keys[i],
+                                      want.sample_keys[i])
