@@ -32,9 +32,10 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      the device Gram (K5, K6);
   6. all_pairs_intersections on 4,096 synthetic sketches of ~25,000 40-bit
      keys (capacity 32,768) drawn from 64 clade pools: the blocked
-     block-cache route (K5 per block, K10 + K6 per macro-tile), then once
-     more under torch.profiler for the device time and launches of the
-     kernels of K5, K10, K6 and K3;
+     block-cache route (each sketch packed bit-tight on the host, K12 + K5
+     per block, K10 + K6 per macro-tile), then once more under
+     torch.profiler for the device time and launches of the kernels of
+     K12, K5, K10, K6 and K3;
   7. BASELINE config 5: two synthetic chromosomes of 268.5-272 Mnt (B a
      1.2%-substituted copy of A, each with N-gaps of 10 kb to 1 Mnt, some
      on segment edges), FASTAs of 80-nt lines of 2^28 bytes or more, through
@@ -97,7 +98,18 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      matrix and counts), each once more under torch.profiler; (e) two
      processes over gloo, both on cuda:0, running the driver with --mesh
      auto on config 2 (both CSVs phase 5's bytes).  Slots that share the
-     card run one after another: their walls show no scaling.
+     card run one after another: their walls show no scaling;
+ 14. the bit-tight slab transport on phase 6's sketches: (a) K12 against
+     its plain version bit for bit at phase 6's block shape (128 x 32,768,
+     40-bit keys), timed with CUDA events and torch.profiler (also with
+     the L2 flushed between launches) beside its byte bound, and the
+     tight presort of block 0 against the word presort; (b)
+     blocked_all_pairs over the sketcher's host source by the tight and
+     the word transports in turns (tight, words, words, tight),
+     each with its wall, host pack and stack thread-ms, bytes uploaded and
+     a profiled rerun's device sums of K12, K5, K10, K6 and the
+     host-to-device copies; every matrix phase 6's; (c) the route phase
+     6's all_pairs_intersections took.
 Phase 2 also holds K7 against its plain version at a streaming segment's
 shape (G = 1, n = 2^25, K = 64), a pipeline dispatch's (G = 32, n = 2^21,
 K = 8) and with K = 512 real bounds; the seed-batch modes at config 3's
@@ -126,11 +138,11 @@ Phases 9 and 10 hold every
 sketch to the native scalar pipeline (phase 9 with each seed's mask and
 salt).  The kernels' launch counters are set to 0 before each of the paths
 (phases 3-4, 5, 6, 7, 8a, 8b, 9, 10a, 10b, 10c, 12a's two runs, 12b's
-three, 12c and 12e, 13a-13d's; each bench run and 13e's ranks in their
-own processes) and read after it; each kernel must have been launched by
-the path that uses it, K7 by phases 7, 8a, 8b, 9, 13d and the bench's
-multiseed, stream and e2e runs, and K1, K3-K7, K10 and K11 by phase
-13.
+three, 12c and 12e, 13a-13d's, 14b's four; each bench run and 13e's ranks
+in their own processes) and read after it; each kernel must have been
+launched by the path that uses it, K7 by phases 7, 8a, 8b, 9, 13d and the
+bench's multiseed, stream and e2e runs, K1, K3-K7, K10 and K11 by phase
+13, and K12 by phases 6 and 14b's tight turns.
 
 K6's compiled code must hold tensor-core instructions (IMMA or IGMMA in
 every pw instance, from cuobjdump -sass).
@@ -147,17 +159,17 @@ torch.sort-yardstick times, and the bound from the kernel's bytes or, for
 K1, K7 and K11, the instructions a window cannot skip at its timed shape
 (the slide, the select, the hash and the filter, counted from probes'
 compiled code with cuobjdump), for K6 its int8 tensor operations on the
-runs it keeps; for K4, K5, K8, K9 and K10 also the device launches of
-one call, from torch.profiler; K1, K2, K3, K6, K8, K9 and K11 their device
-time from torch.profiler beside the CUDA-event time, which also holds the
-wrapper's host time (K8 and K9 at both their timed shapes; a device time
-or launch count is null where the profiler recorded no kernel event in
-three tries); K4 its device time by kernel, its grids and its time at kw
-1-4; K7 its seed-batch launch; K6 at both its timed shapes,
-K3 with the grids the profiler recorded), a line of the profiled sums of
-K4, K7, K2, K5, K10, K6 and K3 over phases 6, 7 and 8(b) with the bytes
-of K2 and K3 on those paths and K4's launches by grid in 8(b), and as
-the LAST line
+runs it keeps; for K4, K5, K8, K9, K10 and K12 also the device launches
+of one call, from torch.profiler; K1, K2, K3, K6, K8, K9, K11 and K12
+their device time from torch.profiler beside the CUDA-event time, which
+also holds the wrapper's host time (K8 and K9 at both their timed
+shapes; a device time or launch count is null where the profiler
+recorded no kernel event in three tries); K4 its device time by kernel,
+its grids and its time at kw 1-4; K7 its seed-batch launch; K6 at both
+its timed shapes, K3 with the grids the profiler recorded), a line of
+the profiled sums of K4, K7, K2, K5, K10, K6, K3 and K12 over phases 6, 7
+and 8(b) with the bytes of K2 and K3 on those paths and K4's launches by
+grid in 8(b), a line of phase 14's route and turns, and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -234,7 +246,8 @@ PATH_KERNELS = {"K4": ("reg_tile_sort_kernel", "sort_level_kernel"),
                 "K5": ("merge_level_kernel", "merge_runs_smem_kernel"),
                 "K10": ("merge_pair_kernel",), "K6": ("gram_mma_kernel",),
                 "K3": ("compact_count_kernel", "compact_offset_kernel",
-                       "compact_scatter_kernel")}
+                       "compact_scatter_kernel"),
+                "K12": ("tight_gid_planes_kernel",)}
 HBM_BYTES_PER_S = 3.35e12
 INSTRUCTIONS_PER_S = 67e12 / 2
 INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core operations
@@ -1533,21 +1546,13 @@ def run_config2(tmp: pathlib.Path, rng, pool) -> dict:
             "wall_s": wall, "paths": paths, "sketches": sc, "inter": inter}
 
 
-def run_blocked(rng, pool) -> dict:
-    """Phase 6: all_pairs_intersections on BLOCKED_GENOMES synthetic
-    sketches of ~25,000 40-bit keys (capacity 32,768) from 64 clade pools
-    of 40,000 keys (genome i in clade (i // 32) % 64, so blocks b and
-    b + 16 share clades and runs are ~40 long), through the blocked
-    route.  Returns its wall time and launch counts."""
-    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
-    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
-        FracMinHashSketcher, Sketch)
-    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
-    from spaced_kmer_sketching_tpu_torch.utils import native
+def blocked_sketches(rng, mask, g=BLOCKED_GENOMES, clades=64, pool_n=40000,
+                     count=25000):
+    """Phase 6's host sketches: g sketches of ~count 40-bit keys (w = 20)
+    drawn from `clades` ascending pools of pool_n keys, genome i from pool
+    (i // 32) % clades."""
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import Sketch
 
-    g, clades, pool_n, count, block = BLOCKED_GENOMES, 64, 40000, 25000, 128
-    t0 = time.perf_counter()
-    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
     steps = rng.integers(1, (1 << 40) // pool_n, (clades, pool_n),
                          dtype=np.int64)
     pools = np.cumsum(steps, axis=1).astype(np.uint64)   # ascending, unique
@@ -1558,19 +1563,42 @@ def run_blocked(rng, pool) -> dict:
         keys[:, 0] = (v & np.uint64(M32)).astype(np.uint32)
         keys[:, 1] = (v >> np.uint64(32)).astype(np.uint32)
         sketches.append(Sketch(keys=keys, count=v.size, window=20,
-                               mask=sk.mask))
+                               mask=mask))
+    return sketches
+
+
+def run_blocked(rng, pool) -> dict:
+    """Phase 6: all_pairs_intersections on BLOCKED_GENOMES synthetic
+    sketches of ~25,000 40-bit keys (capacity 32,768) from 64 clade pools
+    of 40,000 keys (genome i in clade (i // 32) % 64, so blocks b and
+    b + 16 share clades and runs are ~40 long), through the blocked
+    route.  Returns its wall time, launch counts and bytes uploaded, and
+    its sketcher, sketches and matrix for phase 14."""
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+        FracMinHashSketcher)
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build
+    from spaced_kmer_sketching_tpu_torch.utils import native
+
+    g, block = BLOCKED_GENOMES, 128
+    t0 = time.perf_counter()
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cuda")
+    sketches = blocked_sketches(rng, sk.mask)
     print(f"phase 6 data: {g} sketches of {min(s.count for s in sketches)}-"
           f"{max(s.count for s in sketches)} keys in "
           f"{time.perf_counter() - t0:.3f} s")
     build.reset_launches()
+    observability.reset_counters()
     t0 = time.perf_counter()
     out = sk.all_pairs_intersections(sketches)
     wall = time.perf_counter() - t0
     launches = {k: v.launches for k, v in build.KERNELS.items()}
+    h2d = observability.counters().get("blocked_h2d_bytes", 0)
     print(f"phase 6: all_pairs_intersections over {g} sketches (blocked, "
-          f"block {block}): {wall:.3f} s wall; launches "
-          + json.dumps(launches))
-    for key in ("K5", "K6", "K10"):
+          f"block {block}): {wall:.3f} s wall; {h2d} bytes uploaded; "
+          "launches " + json.dumps(launches))
+    for key in ("K12", "K5", "K6", "K10"):
         need(launches[key] > 0, f"{key} was not launched by phase 6")
     prof = profile_path("phase 6", lambda: sk.all_pairs_intersections(
         sketches))
@@ -1598,7 +1626,163 @@ def run_blocked(rng, pool) -> dict:
     print(f"checks: diagonal, symmetry and {len(pairs)} pairs (blocks 0 x "
           f"{other} whole, {nonzero} nonzero) equal native merges in "
           f"{time.perf_counter() - t0:.3f} s")
-    return {"launches": launches, "wall_s": wall, "profile": prof}
+    return {"launches": launches, "wall_s": wall, "profile": prof,
+            "h2d_bytes": h2d, "sketcher": sk, "sketches": sketches,
+            "inter": out}
+
+
+# --- phase 14: the bit-tight slab transport ----------------------------------
+
+def _copy_sums(prof) -> dict:
+    """{copy kind: [device ms, count]} of the host-to-device copies the
+    profiler recorded ("Memcpy HtoD (Pinned -> Device)", "... (Pageable ->
+    Device)")."""
+    out = {}
+    for e in prof.key_averages():
+        if not e.key.startswith("Memcpy HtoD"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        acc = out.setdefault(e.key, [0.0, 0])
+        acc[0] += us / 1e3
+        acc[1] += e.count
+    return out
+
+
+def run_tight(blk: dict) -> dict:
+    """Phase 14 on phase 6's sketches: (a) K12 against its plain version
+    bit for bit at phase 6's block shape (the first 128 sketches packed
+    tight, capacity 32,768, 40-bit keys, gidbits 8, pw 2), timed with CUDA
+    events and torch.profiler beside its byte bound; (b) blocked_all_pairs
+    over the sketcher's host source (blocked_source) by the tight and the
+    word transports in turns (tight, words, words, tight), each once timed
+    (wall, host pack and stack thread-ms, bytes uploaded) and once under
+    torch.profiler (device sums of K12, K5, K10 and K6 and of the
+    host-to-device copies); every matrix must be phase 6's; (c) the route
+    phase 6's all_pairs_intersections took."""
+    import torch
+
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.models import fracminhash
+    from spaced_kmer_sketching_tpu_torch.ops import gram
+    from spaced_kmer_sketching_tpu_torch.ops.cuda import build, tight
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
+
+    sk, sketches, want = blk["sketcher"], blk["sketches"], blk["inter"]
+    g, block, key_bits = len(sketches), allpairs.BLOCK, 40
+    gidbits, pw = allpairs.GIDBITS, gram.pack_plan(40, allpairs.GIDBITS)
+    src = sk.blocked_source(sketches)
+    need(src["key_bits"] == key_bits, "phase 14: phase 6 is not at w = 20")
+
+    # (a)
+    cap = max(128, 1 << (max(s.count for s in sketches) - 1).bit_length())
+    host = np.zeros((block, cap // 4, gram.tight_words4(key_bits)),
+                    np.uint32)
+    counts = src["pack"](0, block, host)
+    dev = sk.device
+    t = torch.from_numpy(host.view(np.int32)).to(dev)
+    c = torch.from_numpy(np.asarray(counts, np.int32)).to(dev)
+    kw = dict(key_bits=key_bits, gidbits=gidbits, pw=pw)
+    got = tight.tight_gid_planes(t, c, **kw)
+    plain = tight.tight_gid_planes_plain(t, c, **kw)
+    err = max_abs_err([got], [plain])
+    need(err <= TOLERANCE, f"K12 disagrees with its plain version: {err}")
+    words = torch.from_numpy(fracminhash._stack_host(
+        sketches[:block], cap, 2).view(np.int32)).to(dev)
+    need(torch.equal(gram.presort_block_tight(t, c, **kw),
+                     gram.presort_block_packed(words, **kw)),
+         "phase 14a: the tight presort != the word presort of block 0")
+    del words
+    # the main path finds the block cold: it was just uploaded.  Between
+    # the launches of the cold timing a 128 MiB write evicts the 50 MB L2
+    # (its kernel is not the port's, so device_ms does not count it)
+    flush = torch.empty(1 << 27, dtype=torch.int8, device=dev)
+
+    def cold():
+        flush.zero_()
+        return tight.tight_gid_planes(t, c, **kw)
+    kern = dict(max_abs_err=err,
+                ms=time_ms(lambda: tight.tight_gid_planes(t, c, **kw), 20),
+                device_ms=device_ms(lambda: tight.tight_gid_planes(
+                    t, c, **kw), 20),
+                device_ms_cold_l2=device_ms(cold, 20),
+                device_launches=device_launches(
+                    lambda: tight.tight_gid_planes(t, c, **kw)),
+                plain_ms=time_ms(lambda: tight.tight_gid_planes_plain(
+                    t, c, **kw), 3),
+                library_ms=None, **bound(nbytes(t, c, got)))
+    kern["fraction_of_bound"] = kern["bound_ms"] / kern["ms"]
+    print(f"phase 14a: K12 at phase 6's block ({block} x {cap}, "
+          f"{nbytes(t, c, got)} bytes): max_abs_err={err}; kernel "
+          f"{kern['ms']} ms (device {kern['device_ms']} ms, L2 flushed "
+          f"{kern['device_ms_cold_l2']} ms, {kern['device_launches']} "
+          f"launches), plain {kern['plain_ms']} ms, bound "
+          f"{kern['bound_ms']} ms ({kern['bound_by']})")
+    del t, c, got, plain, flush
+
+    # (b)
+    pack, provider = src["pack"], src["keys"]
+    spent = {"pack": 0.0, "stack": 0.0}
+
+    def timed(fn, key):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+    args = dict(src, pack=timed(pack, "pack"), keys=timed(provider, "stack"))
+    turns, launches = [], dict.fromkeys(build.KERNELS, 0)
+    for transport in ("tight", "words", "words", "tight"):
+        spent.update(pack=0.0, stack=0.0)
+        build.reset_launches()
+        observability.reset_counters()
+        t0 = time.perf_counter()
+        out = allpairs.blocked_all_pairs(**args, transport=transport)
+        wall = time.perf_counter() - t0
+        run_launches = launch_counts()
+        h2d = observability.counters().get("blocked_h2d_bytes", 0)
+        need(np.array_equal(out, want),
+             f"phase 14b: the {transport} route's matrix != phase 6's")
+        need((run_launches["K12"] > 0) == (transport == "tight"),
+             f"phase 14b: the {transport} route launched K12 "
+             f"{run_launches['K12']} times")
+        host_ms = {k: v * 1e3 for k, v in spent.items()}
+        prof = _profiled(lambda: allpairs.blocked_all_pairs(
+            **src, transport=transport))
+        kernels = _kernel_sums(prof)
+        sums = {key: [sum(kernels.get(n, [0.0, 0])[i]
+                          for n in PATH_KERNELS[key]) for i in (0, 1)]
+                for key in ("K12", "K5", "K10", "K6")}
+        copies = _copy_sums(prof)
+        turns.append({"transport": transport, "wall_s": wall,
+                      "host_thread_ms": host_ms, "h2d_bytes": h2d,
+                      "h2d_device_ms": copies, "device": sums})
+        launches = add_launches(launches, run_launches)
+        print(f"phase 14b: {transport}: {wall:.3f} s wall; host thread ms "
+              f"pack {host_ms['pack']:.1f}, stack {host_ms['stack']:.1f}; "
+              f"H2D {h2d} bytes, device copies [ms, count] "
+              f"{json.dumps(copies)}; device sums [ms, launches] "
+              f"{json.dumps(sums)}; phase 6's matrix")
+        del out
+    tight_s = [r["wall_s"] for r in turns if r["transport"] == "tight"]
+    words_s = [r["wall_s"] for r in turns if r["transport"] == "words"]
+    faster = sum(a < b for a, b in zip(tight_s, words_s))
+    print(f"phase 14b: tight {tight_s} s, words {words_s} s: tight faster "
+          f"in {faster} of 2 turn pairs (tight, words | words, tight)")
+
+    # (c)
+    route = ("in core, tight transport" if blk["launches"]["K12"] > 0
+             else "in core, word transport")
+    need(blk["launches"]["K12"] in (0, -(-g // block)),
+         "phase 14c: phase 6 launched K12 other than once a block")
+    print(f"phase 14c: phase 6's all_pairs_intersections took the blocked "
+          f"schedule {route} (K12 {blk['launches']['K12']} launches, "
+          f"{blk['h2d_bytes']} bytes uploaded)")
+    return {"kernel": kern, "launches": launches, "turns": turns,
+            "route": route}
 
 
 # --- phases 9-10: BASELINE config 3, the single-genome step, the fallbacks --
@@ -2810,6 +2994,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         blk = run_blocked(rng, pool)
         print(f"phase 6: {time.perf_counter() - t0:.3f} s in all")
+        # phase 14: the bit-tight transport on phase 6's sketches
+        t0 = time.perf_counter()
+        tgt = run_tight(blk)
+        kres["K12"] = tgt.pop("kernel")
+        for key in ("sketcher", "sketches", "inter"):
+            del blk[key]
+        print(f"phase 14: {time.perf_counter() - t0:.3f} s in all")
         # phase 7: BASELINE config 5, streamed
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -2847,7 +3038,7 @@ def main(argv=None) -> int:
     for key in ("K1", "K3", "K4", "K5", "K6", "K7", "K10", "K11"):
         need(launches13[key] > 0, f"{key} was not launched by phase 13")
     paths = (run, cfg2, blk, cfg5, cfg4, cfg4b, cfg3, fb, bench, resumed,
-             store_ring, ooc, profiled, *phase13)
+             store_ring, ooc, profiled, tgt, *phase13)
     kernels = []
     for key, kern in build.KERNELS.items():
         r = kres[key]
@@ -2870,6 +3061,12 @@ def main(argv=None) -> int:
             kernels[-1].update(
                 device_launches_per_call=r["device_launches"],
                 fraction_of_bound=r["bound_ms"] / r["ms"])
+        if key == "K12":
+            kernels[-1].update(
+                device_launches_per_call=r["device_launches"],
+                fraction_of_bound=r["fraction_of_bound"],
+                device_ms=r["device_ms"],
+                device_ms_cold_l2=r["device_ms_cold_l2"])
         if key in ("K8", "K9"):
             kernels[-1].update(
                 device_launches_per_call=r["device_launches"],
@@ -2951,6 +3148,11 @@ def main(argv=None) -> int:
           f"{sums13d['2x2']}, 8b {sums13d['8b']}"
           f"; two gloo ranks on config 2 {g13e['wall_s']:.3f} s; launches "
           f"{json.dumps(launches13)}; {smi}")
+    print(f"phase 14 (G = {BLOCKED_GENOMES}): phase 6 took the {tgt['route']}"
+          "; turns " + json.dumps([{k: r[k] for k in ("transport", "wall_s",
+                                                     "host_thread_ms",
+                                                     "h2d_bytes")}
+                                  for r in tgt["turns"]]) + f"; {smi}")
     print("bench (phase 11): " + "; ".join(
         f"{label} {line['metric']} {line['value']} {line['unit']}"
         for label, line in bench["lines"].items()) + f"; {smi}")

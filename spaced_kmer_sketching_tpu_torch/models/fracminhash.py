@@ -17,7 +17,8 @@ package: G <= 8 with the native library takes the host sorted merge;
 8 < G <= 2048 (or G <= 8 without the native library) the device Gram
 (ops/gram.py: K5 merge, K6 scan); larger G the single-device blocked
 schedules (parallel/allpairs.py: K5 per block, K10 + K6 per macro-tile),
-in core while the slab and the presorted cache fit the device budget,
+in core while the slab and the presorted cache fit the device budget
+(each sketch packed bit-tight from its own keys, keys of up to 64 bits),
 else out of core from blocks stacked on demand.
 
 `intersections` (pairwise, the reference's pair lists) and
@@ -48,11 +49,11 @@ from ..config import SketchConfig
 from ..ingest.fasta import PackedSeqs, read_fasta
 from ..observability import count as obs_count, get_logger, span
 from ..ops.cuda.extract import pack2bit, pack2bit_rows, packed_body
-from ..ops.gram import LANES, _guard_words, gram_all_pairs_ondevice
+from ..ops.gram import (LANES, _guard_words, gram_all_pairs_ondevice,
+                        pack_keys_tight_np)
 from ..ops.intersect import intersection_tile, pair_intersection_batch
 from ..ops.sketch import (finish_words, merge_sketches, sketch_batch_compact,
                           sketch_batch_packed_dyn)
-from ..parallel import allpairs
 from ..parallel.allpairs import blocked_all_pairs
 from ..utils import boosthash, native
 from ..utils.masks import SpacedSeedMask, spaced_seed_mask
@@ -504,12 +505,12 @@ class FracMinHashSketcher:
     def all_pairs_intersections(self, sketches: Sequence[Sketch]) -> np.ndarray:
         """(G, G) intersection counts; the diagonal holds the sketch sizes.
         G <= 8 with the native library: the native sorted merge on the
-        downloaded sketches.  Otherwise on the sketcher's device
-        (stack_sketches): the Gram engine up to ONDEVICE_MAX_GENOMES, the
-        blocked schedule above; a collection whose stacked slab and cache
-        would pass the blocked schedule's device budget is not stacked:
-        the blocked schedule stacks each block from the host sketches when
-        it needs it."""
+        downloaded sketches.  Otherwise on the sketcher's device: the Gram
+        engine up to ONDEVICE_MAX_GENOMES (stack_sketches), the blocked
+        schedule above, handed the host sketches (blocked_source) as the
+        JAX sketcher hands it its host slab: the in-core cache gets each
+        sketch packed bit-tight from its own keys, the out-of-core schedule
+        each block's key words stacked when it needs them."""
         g = len(sketches)
         if g <= NATIVE_MAX_GENOMES and native.available():
             u64s = [s.keys_u64() for s in sketches]
@@ -520,22 +521,35 @@ class FracMinHashSketcher:
                     out[i, j] = out[j, i] = native.intersect_sorted(
                         u64s[i], u64s[j])
             return out
-        key_bits = 2 * self.config.window
         if g <= ONDEVICE_MAX_GENOMES:
-            return gram_all_pairs_ondevice(self.stack_sketches(sketches),
-                                           key_bits=key_bits).cpu().numpy()
+            return gram_all_pairs_ondevice(
+                self.stack_sketches(sketches),
+                key_bits=2 * self.config.window).cpu().numpy()
+        return blocked_all_pairs(**self.blocked_source(sketches))
+
+    def blocked_source(self, sketches: Sequence[Sketch]) -> dict:
+        """blocked_all_pairs' arguments for host sketches, with no
+        full-width slab: a block-provider that stacks a block's key words
+        (kw = _guard_words(2 * window)) when the word transport asks for
+        it, and a packer that packs each sketch bit-tight straight from its
+        own keys (pack_keys_tight_np into its row of the block)."""
+        key_bits = 2 * self.config.window
         cap, kw = _stack_cap(sketches), _guard_words(key_bits)
-        if (allpairs.slab_cache_bytes(g, cap, kw, key_bits)
-                <= allpairs.CACHE_BUDGET_BYTES):
-            return blocked_all_pairs(self.stack_sketches(sketches),
-                                     key_bits=key_bits)
+
+        def counts(i0: int, i1: int) -> np.ndarray:
+            return np.array([s.count for s in sketches[i0:i1]], np.int32)
 
         def provider(i0: int, i1: int):
-            part = sketches[i0:i1]
-            return (_stack_host(part, cap, kw),
-                    np.array([s.count for s in part], np.int32))
-        return blocked_all_pairs(provider, g=g, key_bits=key_bits,
-                                 device=self.device)
+            return _stack_host(sketches[i0:i1], cap, kw), counts(i0, i1)
+
+        def pack(i0: int, i1: int, out: np.ndarray) -> np.ndarray:
+            c = counts(i0, i1)
+            for j, s in enumerate(sketches[i0:i1]):
+                pack_keys_tight_np(s.keys[None], c[j:j + 1], key_bits,
+                                   out=out[j:j + 1])
+            return c
+        return dict(keys=provider, g=len(sketches), key_bits=key_bits,
+                    device=self.device, pack=pack)
 
     def _stack_full(self, sketches: Sequence[Sketch], cap: int):
         """Sketches -> (keys (G, cap, 4) int32 all-ones padded, counts (G,)

@@ -91,6 +91,11 @@ KERNELS = {
     "K11": Kernel("extract_filter", "spaced_kmer_sketching_tpu_torch/"
                   "csrc/extract.cu", "spaced_kmer_sketching_tpu/ops/pallas/"
                   "extract.py:272"),
+    # the port's own kernel: the XLA glue of the JAX blocked presort over a
+    # bit-tight slab (unpack_keys_tight, then _pack_gid_planes), no Pallas
+    "K12": Kernel("tight_gid_planes", "spaced_kmer_sketching_tpu_torch/"
+                  "csrc/tight.cu", "spaced_kmer_sketching_tpu/ops/gram.py:570"
+                  " and :210"),
 }
 
 
@@ -202,6 +207,8 @@ def _declare(lib) -> None:
     lib.sks_sort_truncate_scratch.argtypes = [i, i, i64, i64]
     lib.sks_sort_truncate.restype = i
     lib.sks_sort_truncate.argtypes = [p, p, p, i, i, i64, i64, p]
+    lib.sks_tight_gid_planes.restype = i
+    lib.sks_tight_gid_planes.argtypes = [p, p, i64, i, i, i, i, i, p, p]
 
 
 def load(defines=()):

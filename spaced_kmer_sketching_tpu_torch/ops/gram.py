@@ -23,8 +23,16 @@ equality with word 0's low gidbits masked; the gid is word 0's low bits.
 
 Keys travel as int32 tensors holding u32 bits (ops/u64ops.py); shifts are
 taken on int64 copies, where `>>` of a value in [0, 2^32) is logical.  The
-host rank-layout engine (build_rank_layout, gram_all_pairs), the bit-tight
-slab transport and gram_rect_ondevice are not ported (ROADMAP.md).
+host rank-layout engine (build_rank_layout, gram_all_pairs) and
+gram_rect_ondevice are not ported (ROADMAP.md).
+
+The bit-tight slab transport (the JAX module's :509-672) carries host
+sketches to the blocked schedule with only their key_bits live bits: 4
+keys a group in tight_words4(key_bits) words, packed on the host
+(pack_keys_tight_np) and unpacked on the device, where sentinel rows are
+rebuilt from the counts.  presort_block_tight goes from a tight block
+straight to K5's packed planes in one kernel (K12, ops/cuda/tight.py);
+unpack_keys_tight is the plain unpack.  Keys of up to 64 bits only.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch
 from . import u64ops
 from .cuda.gram_tiles import gram_tile_scan
 from .cuda.sort import merge_pair_streams, merge_sorted_runs
+from .cuda.tight import tight_gid_planes
 
 LANES = 128
 
@@ -163,6 +172,136 @@ def presort_blocks_packed(slab: torch.Tensor, *, block: int, key_bits: int,
         cache[b] = presort_block_packed(slab[b * block:(b + 1) * block],
                                         key_bits=key_bits, gidbits=gidbits,
                                         pw=pw)
+    return cache
+
+
+# --- the bit-tight slab transport --------------------------------------------
+
+
+def tight_words4(key_bits: int) -> int:
+    """Words per 4-key group of bit-tight packed keys."""
+    return (4 * key_bits + 31) // 32
+
+
+def pack_keys_tight_np(keys, counts, key_bits: int, use_native: bool = True,
+                       out=None):
+    """Host side: keys (G, n, >= 1) uint32 sorted-unique sketches (anything
+    at or past counts[g] ignored) -> (G, cap/4, tight_words4(key_bits))
+    uint32, cap = n unless `out` (zeroed) gives it; key_bits <= 64.
+    Through the native packer when it is available, else numpy (the JAX
+    module's formulation).  A caller packs one sketch into a row of its
+    slab with keys = its own (1, count, W) keys and out = the row."""
+    import numpy as np
+
+    from ..utils import native as _native
+    keys = np.asarray(keys)
+    g, n = keys.shape[:2]
+    cap = n if out is None else 4 * out.shape[1]
+    if cap % 4 or not 0 < key_bits <= 64:
+        raise ValueError(f"tight packing needs cap % 4 == 0 and key_bits "
+                         f"<= 64, got cap {cap}, key_bits {key_bits}")
+    if use_native and _native.available():
+        return _native.pack_keys_tight(keys, counts, key_bits, out=out)
+    kb, w4 = key_bits, tight_words4(key_bits)
+    if n != cap:
+        pad = np.zeros((g, cap, keys.shape[2]), np.uint32)
+        pad[:, :min(n, cap)] = keys[:, :cap]
+        keys = pad
+    lo = keys[:, :, 0].astype(np.uint64)
+    hi = (keys[:, :, 1].astype(np.uint64) if keys.shape[2] > 1
+          else np.zeros_like(lo))
+    v = lo | (hi << np.uint64(32))
+    if kb < 64:
+        v &= (np.uint64(1) << np.uint64(kb)) - np.uint64(1)
+    idx = np.arange(cap, dtype=np.int64)[None, :]
+    v = np.where(idx < np.asarray(counts).astype(np.int64)[:, None], v, 0)
+    v = v.reshape(g, cap // 4, 4)
+    res = np.zeros((g, cap // 4, w4), np.uint32)
+    m32 = np.uint64(0xFFFFFFFF)
+    for j in range(4):
+        w, s = divmod(j * kb, 32)
+        res[:, :, w] |= ((v[:, :, j] << np.uint64(s)) & m32).astype(np.uint32)
+        rem = kb - (32 - s)          # bits spilling past word w
+        if rem > 0:
+            res[:, :, w + 1] |= ((v[:, :, j] >> np.uint64(32 - s))
+                                 & m32).astype(np.uint32)
+        if rem > 32:
+            res[:, :, w + 2] |= (v[:, :, j] >> np.uint64(64 - s)) \
+                .astype(np.uint32)
+    if out is None:
+        return res
+    out[...] = res
+    return out
+
+
+def unpack_keys_tight(tight: torch.Tensor, counts: torch.Tensor,
+                      key_bits: int, kw_out: int) -> torch.Tensor:
+    """Plain inverse of pack_keys_tight_np on any device: tight (G, cap/4,
+    w4) int32 holding u32 bits, counts (G,) -> (G, cap, kw_out) int32 key
+    words with all-ones sentinel rows at or past counts (the sketches'
+    padded layout)."""
+    g, cap4, w4 = tight.shape
+    kb = key_bits
+    t = [u64ops.as_u32(tight[:, :, w]) for w in range(w4)]
+    zero = torch.zeros((g, cap4), dtype=torch.int64, device=tight.device)
+    slots = []
+    for j in range(4):
+        words = []
+        for q in range(kw_out):
+            if 32 * q >= kb:                 # word past the key's live bits
+                words.append(zero)
+                continue
+            w, s = divmod(j * kb + 32 * q, 32)
+            val = t[w] >> s if w < w4 else zero
+            if s and w + 1 < w4:
+                val = val | ((t[w + 1] << (32 - s)) & u64ops.M32)
+            live = kb - 32 * q           # live bits in this output word
+            if live < 32:
+                val = val & ((1 << live) - 1)
+            words.append(val)
+        slots.append(torch.stack(words, dim=-1))        # (G, cap4, kw_out)
+    keys = u64ops.as_i32(torch.stack(slots, dim=2).reshape(g, 4 * cap4,
+                                                           kw_out))
+    idx = torch.arange(4 * cap4, device=tight.device)
+    sent = idx[None, :] >= counts.to(tight.device)[:, None]
+    return torch.where(sent[:, :, None], -1, keys)
+
+
+def presort_block_tight(tight: torch.Tensor, counts: torch.Tensor, *,
+                        key_bits: int, gidbits: int, pw: int
+                        ) -> torch.Tensor:
+    """presort_block_packed of a bit-tight block: tight (blk, cap/4,
+    tight_words4(key_bits)) int32 + counts (blk,) int32 -> (pw,
+    blk*cap/128, 128) sorted packed planes with LOCAL gids [0, blk).  K12
+    unpacks the block straight into the packed planes (the full-width keys
+    never exist), K5 merges them."""
+    blk, cap4 = tight.shape[:2]
+    if blk & (blk - 1):
+        raise ValueError(f"block must be a power of two, got {blk}")
+    _check_cap(4 * cap4)
+    planes = tight_gid_planes(tight, counts, key_bits=key_bits,
+                              gidbits=gidbits, pw=pw)
+    return _sort_packed(planes, 4 * cap4 // LANES)
+
+
+def presort_blocks_tight(tight: torch.Tensor, counts: torch.Tensor, *,
+                         block: int, key_bits: int, gidbits: int, pw: int
+                         ) -> torch.Tensor:
+    """presort_blocks_packed fed by a bit-tight slab (nb*block, cap/4,
+    tight_words4(key_bits)) + counts (nb*block,): the same (nb, pw,
+    block*cap/128, 128) cache as presort_blocks_packed gives on the
+    unpacked slab, built block by block."""
+    g, cap4, _ = tight.shape
+    if g % block:
+        raise ValueError(f"{g} genomes are not whole blocks of {block}")
+    nb = g // block
+    cache = torch.empty((nb, pw, block * cap4 * 4 // LANES, LANES),
+                        dtype=torch.int32, device=tight.device)
+    for b in range(nb):
+        rows = slice(b * block, (b + 1) * block)
+        cache[b] = presort_block_tight(tight[rows], counts[rows],
+                                       key_bits=key_bits, gidbits=gidbits,
+                                       pw=pw)
     return cache
 
 

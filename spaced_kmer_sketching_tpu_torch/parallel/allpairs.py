@@ -22,9 +22,17 @@ presorted again per tile, and each row of tiles is downloaded into the
 host matrix.  Both give the same matrix bit for bit.
 
 The device matrix is int32 (the JAX sweep's int16 matrix is not ported:
-on the H100 its download was no faster, PERF.md).  The bit-tight slab
-transport is not ported (ROADMAP.md).  The probe engine is
+on the H100 its download was no faster, PERF.md).  The probe engine is
 ops/intersect.py.
+
+Host keys reach the in-core cache by the bit-tight slab transport
+(ops/gram.py; JAX's _gram_blocked_cached :237-275) where JAX takes it and
+keys have at most 64 bits (JAX's packer asserts there, so its route
+fails above): each block is packed on worker threads into a pinned
+buffer, only its live key bits, uploaded without blocking the host while
+the next block packs, and presorted from the tight words (K12, K5).
+Otherwise, and on the out-of-core schedule, blocks travel as key words.
+`transport=` picks one for a call.
 
 Over a mesh (parallel/mesh.py; the JAX mesh functions :27, :331-407,
 :435-451): `blocked_all_pairs(mesh=...)` presorts every block once per
@@ -38,14 +46,17 @@ schedule) are not ported.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..observability import count as obs_count
-from ..ops.gram import (LANES, _guard_words, gram_pair_tile, pack_plan,
-                        presort_block_packed, presort_blocks_packed)
+from ..ops.gram import (LANES, _guard_words, gram_pair_tile,
+                        pack_keys_tight_np, pack_plan, presort_block_packed,
+                        presort_block_tight, presort_blocks_packed,
+                        tight_words4)
 from ..ops.intersect import intersection_tile
 from .distributed import all_reduce
 from .mesh import Mesh, pad_to_multiple, split_range
@@ -58,6 +69,7 @@ CACHE_BUDGET_BYTES = 8 << 30
 COL_CACHE_BYTES = 2 << 30
 BLOCK = 128          # genomes per block: the JAX sketcher's choice
 GIDBITS = (2 * BLOCK - 1).bit_length()   # a tile's row and column gids
+PACK_THREADS = 4     # tight-packing host threads (tools/time_transport.py)
 
 Provider = Callable[[int, int], tuple]
 
@@ -71,20 +83,28 @@ def slab_cache_bytes(g: int, cap: int, words: int, key_bits: int) -> int:
 
 
 def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
-                      key_bits: int, g: Optional[int] = None, device=None,
-                      budget_bytes: Optional[int] = None,
+                      key_bits: int, g: Optional[int] = None, counts=None,
+                      device=None, budget_bytes: Optional[int] = None,
                       col_cache_bytes: Optional[int] = None,
-                      mesh: Optional[Mesh] = None) -> np.ndarray:
+                      mesh: Optional[Mesh] = None,
+                      transport: Optional[str] = None,
+                      pack: Optional[Callable] = None) -> np.ndarray:
     """(G, G) int32 intersections of G sorted-unique sketches (all-ones
     padded; cap a power of two >= 128; key_bits low key bits live), block
     by block of BLOCK genomes.  `keys` is one of:
       * a (G, cap, W) int32 tensor; the work runs on its device;
-      * a host numpy (G, cap, W) uint32 array;
+      * a host numpy (G, cap, W) uint32 array, with its counts (G,) or
+        without (then the padding gives them);
       * a callable block-provider keys(i0, i1) -> (np keys (i1-i0, cap, W)
         uint32, np counts), with g= (e.g. reading a store.SketchStore), so
         the whole slab never materializes on the host either.
-    W >= _guard_words(key_bits); the padding marks each sketch's end, so
-    the counts are not read.  Host keys go to `device` (default cuda).
+    W >= _guard_words(key_bits).  Host keys go to `device` (default cuda).
+    transport: "tight" sends host keys to the in-core cache bit-tight,
+    "words" as key words; the default takes "tight" where it can (host
+    keys on the in-core route, key_bits <= 64).  pack(i0, i1, out) ->
+    counts, if given, writes the tight rows of sketches i0..i1 at this
+    call's key_bits into the zeroed uint32 out (i1-i0, cap/4,
+    tight_words4(key_bits)) in place of packing the provider's keys.
     Collections whose slab and cache pass budget_bytes take the
     out-of-core schedule, its column cache bounded by col_cache_bytes;
     the two default to CACHE_BUDGET_BYTES and COL_CACHE_BYTES as they
@@ -102,7 +122,9 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
     else:
         host = np.asarray(keys)
         g = host.shape[0]
-        provider = lambda i0, i1: (host[i0:i1], None)  # noqa: E731
+        host_counts = None if counts is None else np.asarray(counts)
+        provider = lambda i0, i1: (  # noqa: E731
+            host[i0:i1], None if counts is None else host_counts[i0:i1])
     replicas = [] if mesh is None else mesh.distinct()
     if replicas:
         device = replicas[0]
@@ -111,8 +133,7 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
         budget_bytes = CACHE_BUDGET_BYTES
     if col_cache_bytes is None:
         col_cache_bytes = COL_CACHE_BYTES
-    first = provider(0, min(g, BLOCK))[0]
-    cap, words = first.shape[1], first.shape[2]
+    cap, words = provider(0, min(g, 1))[0].shape[1:]
     kw = min(words, _guard_words(key_bits))
     pw = pack_plan(key_bits, GIDBITS)
     nb = -(-g // BLOCK)
@@ -120,7 +141,15 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
     def block_keys(b: int) -> torch.Tensor:
         return _block(provider, b, g, kw, device)
 
-    if slab_cache_bytes(g, cap, words, key_bits) <= budget_bytes:
+    in_core = slab_cache_bytes(g, cap, words, key_bits) <= budget_bytes
+    if _tight(transport, not isinstance(keys, torch.Tensor) and in_core,
+              cap, kw, key_bits):
+        caches = _presort_tight(provider, pack, g, cap, kw, key_bits, pw,
+                                replicas or [device])
+        if mesh is not None:
+            return mesh_tile_sweep(mesh, caches, g)
+        return pair_tile_sweep(caches[device], g, gidbits=GIDBITS)
+    if in_core:
         if isinstance(keys, torch.Tensor) and g % BLOCK == 0 and words == kw:
             slab = keys.contiguous()      # the caller's slab, used in place
         else:
@@ -142,15 +171,102 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
                         col_cache_bytes=col_cache_bytes)
 
 
+def _tight(transport: Optional[str], host_in_core: bool, cap: int, kw: int,
+           key_bits: int) -> bool:
+    """Whether the call takes the bit-tight transport: where JAX's
+    _gram_blocked_cached does (host keys, cap % 4 == 0, fewer tight words
+    than key words), on the in-core route, and with key_bits <= 64."""
+    if transport not in (None, "tight", "words"):
+        raise ValueError(f"transport must be 'tight' or 'words', got "
+                         f"{transport!r}")
+    able = (host_in_core and cap % 4 == 0 and key_bits <= 64
+            and tight_words4(key_bits) < 4 * kw)
+    if transport == "tight" and not able:
+        raise ValueError("the tight transport needs host keys on the "
+                         "in-core route and key_bits <= 64")
+    return able and transport != "words"
+
+
+def _padding_counts(keys: np.ndarray, kw: int) -> np.ndarray:
+    """Each sketch's count: the index of its first all-ones row, or cap."""
+    sent = (np.asarray(keys)[:, :, :kw] == 0xFFFFFFFF).all(-1)
+    return np.where(sent.any(1), sent.argmax(1), sent.shape[1]).astype(
+        np.int32)
+
+
+def _presort_tight(provider: Provider, pack: Optional[Callable], g: int,
+                   cap: int, kw: int, key_bits: int, pw: int,
+                   devices) -> Dict[torch.device, torch.Tensor]:
+    """The in-core cache (nb, pw, rows, 128) on each of `devices` from
+    bit-tight blocks.  PACK_THREADS host threads pack blocks ahead (`pack`,
+    or the provider's keys through pack_keys_tight_np; both release the
+    GIL in the native packer) into a ring of buffers, pinned when a device
+    is a GPU; block b uploads to each device without blocking the host and
+    is presorted there (K12, K5) while later blocks pack.  A buffer is
+    packed again once its upload has completed.  Counts the bytes sent
+    (observability counter blocked_h2d_bytes)."""
+    nb = -(-g // BLOCK)
+    w4 = tight_words4(key_bits)
+    pinned = any(d.type == "cuda" for d in devices)
+    depth = min(nb, PACK_THREADS + 1)
+    ring = [(torch.empty((BLOCK, cap // 4, w4), dtype=torch.int32,
+                         pin_memory=pinned),
+             torch.empty(BLOCK, dtype=torch.int32, pin_memory=pinned))
+            for _ in range(depth)]
+    uploads = [[] for _ in range(depth)]     # events of a buffer's uploads
+    caches = {d: torch.empty((nb, pw, BLOCK * cap // LANES, LANES),
+                             dtype=torch.int32, device=d) for d in devices}
+
+    def fill(b: int) -> None:
+        tight, cnt = ring[b % depth]
+        for e in uploads[b % depth]:
+            e.synchronize()
+        i0, i1 = b * BLOCK, min(g, (b + 1) * BLOCK)
+        out, c = tight.numpy().view(np.uint32), cnt.numpy()
+        out.fill(0)
+        c.fill(0)
+        if pack is not None:
+            c[:i1 - i0] = pack(i0, i1, out[:i1 - i0])
+            return
+        k, kc = provider(i0, i1)
+        if kc is None:
+            kc = _padding_counts(k, kw)
+        pack_keys_tight_np(k, kc, key_bits, out=out[:i1 - i0])
+        c[:i1 - i0] = kc
+
+    with cf.ThreadPoolExecutor(max_workers=min(depth, PACK_THREADS)) as pool:
+        pending = {b: pool.submit(fill, b) for b in range(depth)}
+        for b in range(nb):
+            pending.pop(b).result()
+            tight, cnt = ring[b % depth]
+            events = []
+            for d in devices:
+                td = tight.to(d, non_blocking=True)
+                cd = cnt.to(d, non_blocking=True)
+                if d.type == "cuda":
+                    events.append(torch.cuda.Event())
+                    events[-1].record(torch.cuda.current_stream(d))
+                caches[d][b] = presort_block_tight(
+                    td, cd, key_bits=key_bits, gidbits=GIDBITS, pw=pw)
+            uploads[b % depth] = events
+            obs_count("blocked_h2d_bytes",
+                      len(devices) * (tight.nbytes + cnt.nbytes))
+            if b + depth < nb:
+                pending[b + depth] = pool.submit(fill, b + depth)
+    return caches
+
+
 def _block(provider: Provider, b: int, g: int, kw: int,
            device: torch.device) -> torch.Tensor:
     """Block b's (BLOCK, cap, kw) int32 keys on `device`, a ragged tail
-    filled with all-sentinel sketches."""
+    filled with all-sentinel sketches.  Counts the bytes of host keys sent
+    (blocked_h2d_bytes)."""
     i0, i1 = b * BLOCK, min(g, (b + 1) * BLOCK)
     k = provider(i0, i1)[0][:, :, :kw]
     if not isinstance(k, torch.Tensor):
         k = torch.from_numpy(
             np.ascontiguousarray(k, dtype=np.uint32).view(np.int32))
+        obs_count("blocked_h2d_bytes", k.nbytes)
     k = k.to(device)
     if k.shape[0] < BLOCK:
         pad = torch.full((BLOCK - k.shape[0],) + tuple(k.shape[1:]), -1,
@@ -271,7 +387,8 @@ def mesh_all_pairs_packed(mesh: Mesh, keys_np: np.ndarray, *,
         slab = np.full((g, capp, words), 0xFFFFFFFF, np.uint32)
         slab[:, :cap] = keys_np
         keys_np = slab
-    return blocked_all_pairs(keys_np, key_bits=key_bits, mesh=mesh)
+    return blocked_all_pairs(keys_np, key_bits=key_bits, mesh=mesh,
+                             transport="words")
 
 
 def sharded_all_pairs_fn(mesh: Mesh) -> Callable:

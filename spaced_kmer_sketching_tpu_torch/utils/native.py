@@ -107,6 +107,10 @@ def _declare(lib):
         c.c_uint64, c.c_uint64, c.c_int,
         c.c_uint64, c.c_uint64, c.c_int,
         c.c_int, c.POINTER(c.c_int64)]
+    lib.skt_pack_keys_tight.restype = None
+    lib.skt_pack_keys_tight.argtypes = [
+        c.POINTER(c.c_uint32), c.POINTER(c.c_int32), c.c_int64, c.c_int64,
+        c.c_int, c.c_int, c.POINTER(c.c_uint32)]
     lib.skt_intersect_sorted.restype = c.c_int64
     lib.skt_intersect_sorted.argtypes = [
         c.POINTER(c.c_uint64), c.c_int64, c.POINTER(c.c_uint64), c.c_int64]
@@ -247,6 +251,42 @@ def pack2bit(codes: np.ndarray, n_words: int) -> np.ndarray:
     lib.skt_pack2bit(
         codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         np.int64(codes.shape[0]), np.int64(n_words),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out
+
+
+def pack_keys_tight(keys: np.ndarray, counts: np.ndarray, key_bits: int,
+                    out: np.ndarray | None = None) -> np.ndarray:
+    """Bit-tight pack of (g, n, kw) uint32 sketch keys into (g, cap/4,
+    ceil(4*key_bits/32)) uint32 (ops/gram.py's tight transport): each
+    sketch's first counts[i] keys' low key_bits bits, 4 keys a group;
+    entries at or past the count pack as 0.  `out`, by default a new
+    array at cap = n, must be zeroed (the packer ORs bits into it); a
+    caller can pass a row of its own slab and one sketch's own keys
+    (g = 1, any n >= its count).  With g > 1, n must be cap: the packer
+    steps through keys and out with one stride."""
+    lib = get_lib()
+    assert lib is not None
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    g, n, kw = keys.shape
+    w4 = (4 * key_bits + 31) // 32
+    if out is None:
+        if n % 4:
+            raise ValueError(f"capacity {n} is not a multiple of 4")
+        out = np.zeros((g, n // 4, w4), np.uint32)
+    cap = 4 * out.shape[1]
+    if (out.shape != (g, cap // 4, w4) or out.dtype != np.uint32
+            or not out.flags.c_contiguous or (g > 1 and n != cap)):
+        raise ValueError(f"out {out.shape} {out.dtype} does not fit {g} "
+                         f"sketches of {n} keys at {key_bits} key bits")
+    counts = np.asarray(counts, dtype=np.int64)
+    if counts.shape != (g,):
+        raise ValueError(f"counts {counts.shape} for {g} sketches")
+    counts = np.minimum(counts, n).astype(np.int32)
+    lib.skt_pack_keys_tight(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        np.int64(g), np.int64(cap), int(kw), int(key_bits),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
     return out
 

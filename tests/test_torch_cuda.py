@@ -19,7 +19,7 @@ from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
 from spaced_kmer_sketching_tpu_torch.ops import gram
 from spaced_kmer_sketching_tpu_torch.ops.cuda import build
 from spaced_kmer_sketching_tpu_torch.ops.cuda import (compact, extract,
-                                                      gram_tiles, sort)
+                                                      gram_tiles, sort, tight)
 from spaced_kmer_sketching_tpu_torch.ops import u64ops
 from spaced_kmer_sketching_tpu_torch.ops.sketch import (
     _k_slots_for, finish_words, sketch_batch_packed_dyn)
@@ -1120,3 +1120,74 @@ def test_mesh_pipeline_on_one_card_matches_device_pipeline(dev):
     for i in (0, 511, 699):
         np.testing.assert_array_equal(res.sample_keys[i],
                                       want.sample_keys[i])
+
+
+# --- K12: a bit-tight block into K5's packed planes --------------------------
+
+def k12_case(dev, rng, key_bits, gidbits, rows, cap, counts):
+    """K12 on the card against its plain version on the same tight block
+    of random words (bits above key_bits and past the counts included)."""
+    keys = rng.integers(0, 1 << 32, (rows, cap, 2), dtype=np.uint64).astype(
+        np.uint32)
+    counts = np.asarray(counts, np.int32)
+    packed = gram.pack_keys_tight_np(keys, counts, key_bits)
+    t = torch.from_numpy(packed.view(np.int32)).to(dev)
+    c = torch.from_numpy(counts).to(dev)
+    kw = dict(key_bits=key_bits, gidbits=gidbits,
+              pw=gram.pack_plan(key_bits, gidbits))
+    build.reset_launches()
+    got = tight.tight_gid_planes(t, c, **kw)
+    torch.cuda.synchronize()
+    assert build.KERNELS["K12"].launches == 1
+    assert torch.equal(got, tight.tight_gid_planes_plain(t, c, **kw))
+    return got
+
+
+@pytest.mark.parametrize("fill", ["empty", "ragged", "full"])
+@pytest.mark.parametrize("key_bits", [16, 40, 64])
+def test_k12_matches_plain(dev, key_bits, fill):
+    """128 rows of capacity 1,024, counts 0, ragged or full."""
+    rng = np.random.default_rng(key_bits)
+    rows, cap = 128, 1024
+    counts = {"empty": np.zeros(rows), "full": np.full(rows, cap),
+              "ragged": rng.integers(0, cap + 1, rows)}[fill]
+    got = k12_case(dev, rng, key_bits, 8, rows, cap, counts)
+    valid = (got[-1] >= 0).sum().item()
+    assert valid == int(np.sum(counts))
+
+
+@settings(max_examples=25, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(key_bits=st.integers(1, 64), rows=st.integers(1, 200),
+       extra_gid=st.integers(0, 8), cap=st.sampled_from([128, 256, 512]),
+       seed=st.integers(0, 2 ** 31))
+def test_k12_property(dev, key_bits, rows, extra_gid, cap, seed):
+    """Any key width to 64 bits, gid field and row count; counts from
+    below 0 to past the capacity."""
+    rng = np.random.default_rng(seed)
+    gidbits = min(31, max(1, (rows - 1).bit_length()) + extra_gid)
+    k12_case(dev, rng, key_bits, gidbits, rows, cap,
+             rng.integers(-3, cap + 4, rows))
+
+
+def test_blocked_transports_match_on_card(dev):
+    """blocked_all_pairs on 300 host sketches of capacity 1,024: the tight
+    transport (K12 once a block) and the word transport (no K12) give one
+    matrix."""
+    from spaced_kmer_sketching_tpu_torch.parallel import allpairs
+    rng = np.random.default_rng(13)
+    g, cap = 300, 1024
+    pool = np.cumsum(rng.integers(1, 1 << 20, 4000)).astype(np.uint64)
+    keys = np.full((g, cap, 2), 0xFFFFFFFF, np.uint32)
+    for i in range(g):
+        v = np.unique(rng.choice(pool, 900))
+        keys[i, :v.size, 0] = (v & 0xFFFFFFFF).astype(np.uint32)
+        keys[i, :v.size, 1] = (v >> np.uint64(32)).astype(np.uint32)
+    got = {}
+    for transport, k12 in (("tight", 3), ("words", 0)):
+        build.reset_launches()
+        got[transport] = allpairs.blocked_all_pairs(
+            keys, key_bits=40, device=dev, transport=transport)
+        assert build.KERNELS["K12"].launches == k12
+    np.testing.assert_array_equal(got["tight"], got["words"])
+    assert np.all(np.diag(got["tight"]) > 0)

@@ -9,7 +9,7 @@ tests/test_distributed_multiprocess.py.  The test skips only where
 localhost sockets cannot bind, as that test does.
 
 A CUDA launch goes to the calling thread's current device, so every
-kernel wrapper (ops/cuda/{extract,compact,sort,gram_tiles}.py) must
+kernel wrapper (ops/cuda/{extract,compact,sort,gram_tiles,tight}.py) must
 launch through build.launch, which makes the tensor's device current.
 One GPU cannot show the fault, and the CPU has none; the check runs each
 wrapper on meta tensors against a stand-in library that records the
@@ -31,7 +31,7 @@ from spaced_kmer_sketching_tpu.config import SketchConfig as JaxConfig
 from spaced_kmer_sketching_tpu.driver import run_experiment
 
 from spaced_kmer_sketching_tpu_torch.ops.cuda import (build, compact, extract,
-                                                      gram_tiles, sort)
+                                                      gram_tiles, sort, tight)
 
 from test_distributed_multiprocess import K, SCALE, WINDOW, _write_fastas
 from test_torch_mesh import one_torch_thread  # noqa: F401
@@ -134,7 +134,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 # --- the device guard --------------------------------------------------------
 
-WRAPPER_MODULES = (extract, compact, sort, gram_tiles)
+WRAPPER_MODULES = (extract, compact, sort, gram_tiles, tight)
 
 
 def test_every_launch_goes_through_build_launch():

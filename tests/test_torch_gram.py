@@ -301,8 +301,11 @@ def test_routing_by_genome_count(monkeypatch):
         return torch.zeros((keys.shape[0],) * 2, dtype=torch.int32)
 
     def blocked(keys, **kw):
-        calls.append(("blocked", keys.shape, kw))
-        return np.zeros((keys.shape[0],) * 2, np.int32)
+        # the host sketches: a provider of key words and a tight packer
+        g = kw.pop("g")
+        assert callable(kw.pop("pack")) and kw.pop("device") == sk.device
+        calls.append(("blocked", keys(0, g)[0].shape, kw))
+        return np.zeros((g, g), np.int32)
 
     monkeypatch.setattr(fracminhash, "gram_all_pairs_ondevice", ondevice)
     monkeypatch.setattr(fracminhash, "blocked_all_pairs", blocked)

@@ -108,7 +108,8 @@ def test_out_of_core_through_a_store_provider(collection, tmp_path):
 def test_sketcher_stacks_blocks_on_demand_past_the_budget(collection,
                                                           monkeypatch):
     """all_pairs_intersections past the budget hands the blocked schedule
-    a provider and never stacks the whole slab."""
+    a provider and never stacks the whole slab; in core it never stacks it
+    either: each sketch is packed bit-tight from its own keys."""
     keys, counts, want = collection
     sk = FracMinHashSketcher(SketchConfig(window=20, k=16), device="cpu")
     sketches = [Sketch(keys=keys[i, :c].copy(), count=int(c), window=20,
@@ -122,8 +123,12 @@ def test_sketcher_stacks_blocks_on_demand_past_the_budget(collection,
     np.testing.assert_array_equal(sk.all_pairs_intersections(sketches), want)
     assert stacked == []
     monkeypatch.setattr(allpairs, "CACHE_BUDGET_BYTES", 8 << 30)
+    observability.reset_counters()
     np.testing.assert_array_equal(sk.all_pairs_intersections(sketches), want)
-    assert stacked == [300]
+    assert stacked == []
+    # three tight blocks of 128 x 32 groups of 5 words, and their counts
+    assert observability.counters()["blocked_h2d_bytes"] == \
+        3 * 128 * (32 * 5 + 1) * 4
 
 
 def test_default_budgets_are_read_at_the_call(collection, monkeypatch):
