@@ -285,12 +285,7 @@ def test_overflow_retry_matches_jax():
     cfg = dict(window=14, k=9, scale=4, sketch_capacity=256)
     port = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
     packed = [PackedSeqs(c, lens) for c, lens in genomes]
-    codes = np.zeros((2, 16384), np.uint8)
-    rid = np.full((2, 16384), -1, np.int32)
-    for j, (c, _) in enumerate(genomes):
-        codes[j, :c.size] = c
-        rid[j, :c.size] = 0
-    first = port._dispatch_sketch(codes, rid, 256)[0]
+    first = port._dispatch_sketch(packed, 16384, 256)[0]
     raws = first.raw_kept.numpy()
     assert raws[0] > 256 >= raws[1]          # only genome 0 overflows
     got = port.sketch_packed_batch(packed)
