@@ -171,7 +171,8 @@ def upload_cache_keys(genomes: Sequence[PackedSeqs], n: int,
     (hashlib drops the interpreter lock): one thread hashes a 5 Mnt genome
     slower than the native pack it would save."""
     codes = [np.ascontiguousarray(pk.codes, np.uint8) for pk in genomes]
-    with cf.ThreadPoolExecutor(max_workers=_DIGEST_THREADS) as pool:
+    with span("sketch.digest"), \
+            cf.ThreadPoolExecutor(max_workers=_DIGEST_THREADS) as pool:
         pieces = [[pool.submit(_blake2b, c[i:i + _DIGEST_PIECE])
                    for i in range(0, c.size, _DIGEST_PIECE)] for c in codes]
         keys = []
@@ -210,10 +211,12 @@ def upload_genomes(genomes: Sequence[PackedSeqs], n: int,
                 obs_count("upload_cache_hits")
                 out.append(hit)
                 continue
-        words = pack2bit(np.ascontiguousarray(pk.codes, np.uint8), n // 16)
-        ends = np.cumsum(pk.run_lens, dtype=np.int64).astype(np.int32)
-        entry = GenomeUpload(_upload(words.view(np.int32), device),
-                             _upload(ends, device))
+        with span("sketch.pack_upload"):
+            words = pack2bit(np.ascontiguousarray(pk.codes, np.uint8),
+                             n // 16)
+            ends = np.cumsum(pk.run_lens, dtype=np.int64).astype(np.int32)
+            entry = GenomeUpload(_upload(words.view(np.int32), device),
+                                 _upload(ends, device))
         obs_count("upload_cache_misses")
         obs_count("upload_cache_h2d_bytes", entry.nbytes)
         if key is not None:
@@ -295,14 +298,14 @@ class FracMinHashSketcher:
         """Wait for a dispatched batch, running the overflow retry if
         needed: only the overflowed genomes are re-sketched, at the
         smallest power-of-two capacity above their raw kept count.
-        Returns numpy (keys (G, cap, 4) uint32, counts, raws)."""
+        Returns numpy (keys (G, cap, 4) uint32, counts)."""
         res, args, make, capacity = handle
         raws = res.raw_kept.cpu().numpy()
         keys = res.keys.cpu().numpy().view(np.uint32)
         counts = res.count.cpu().numpy()
         raw = int(raws.max())
         if raw <= capacity:
-            return keys, counts, raws
+            return keys, counts
         bad = np.nonzero(raws > capacity)[0]
         sel_idx = torch.from_numpy(bad).to(args[0].device)
         sel = tuple(a.index_select(0, sel_idx) for a in args)
@@ -327,8 +330,7 @@ class FracMinHashSketcher:
             keys[gi, :c] = keys2[bi, :c]
             keys[gi, c:] = 0xFFFFFFFF
             counts[gi] = c
-            raws[gi] = raws2[bi]
-        return keys, counts, raws
+        return keys, counts
 
     def sketch_packed_multiseed(self, packed: PackedSeqs,
                                 masks: Optional[Sequence[SpacedSeedMask]]
@@ -541,7 +543,7 @@ class FracMinHashSketcher:
                 return PackedSeqs(codes=np.empty(0, np.uint8),
                                   run_lens=np.empty(0, np.int64))
 
-        with span("sketching", log):
+        with span("sketch.files", log):
             streamed = {}
             for p in sorted(big):
                 try:
@@ -552,7 +554,8 @@ class FracMinHashSketcher:
                     log.exception("skipping unreadable genome %s", p)
                     streamed[p] = self._empty_sketch(p)
             small = [p for p in paths if p not in big]
-            with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            with span("sketch.parse_wait"), \
+                    cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
                 packed = list(ex.map(read, small))
             sketched = iter(self.sketch_packed_batch(packed, names=small))
             return [streamed[p] if p in big else next(sketched)
@@ -584,17 +587,12 @@ class FracMinHashSketcher:
 
         def finalize(pending):
             members, handle = pending
-            keys, counts, raws = self._collect_sketch(handle)
-            for j, (i, pk, nw) in enumerate(members):
+            keys, counts = self._collect_sketch(handle)
+            for j, (i, _, _) in enumerate(members):
                 c = int(counts[j])
                 out[i] = Sketch(keys=keys[j, :c].copy(), count=c,
                                 window=cfg.window, mask=self.mask,
                                 name=names[i])
-                obs_count("runs", int(pk.run_lens.size))
-                obs_count("windows", nw)
-                obs_count("kept_kmers", int(raws[j]))
-                obs_count("unique_kmers", c)
-            obs_count("genomes", len(members))
 
         pending = None
         for n, members in chunks:

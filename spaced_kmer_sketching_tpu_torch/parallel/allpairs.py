@@ -52,7 +52,7 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from ..observability import count as obs_count
+from ..observability import count as obs_count, span
 from ..ops.gram import (LANES, _guard_words, gram_pair_tile,
                         pack_keys_tight_np, pack_plan, presort_block_packed,
                         presort_block_tight, presort_blocks_packed,
@@ -323,20 +323,23 @@ def pair_tile_sweep(cache: torch.Tensor, g: int, *, gidbits: int
     """Upper-triangle macro-tile sweep over the presorted cache
     (nb, pw, rows, 128): every tile (gram_pair_tile) is written with its
     mirror into a device int32 matrix that is downloaded once at the end
-    (the JAX sweep batches tiles per dispatch and downloads each batch)."""
+    (the JAX sweep batches tiles per dispatch and downloads each batch).
+    Spans allpairs.tiles (the launches) and allpairs.download."""
     nb = cache.shape[0]
     full = torch.empty((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
                        device=cache.device)
-    for bi in range(nb):
-        rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
-        for bj in range(bi, nb):
-            cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
-            t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
-                               gidbits=gidbits)
-            full[rows, cols] = t
-            if bj != bi:
-                full[cols, rows] = t.T
-    return full[:g, :g].cpu().numpy()
+    with span("allpairs.tiles"):
+        for bi in range(nb):
+            rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
+            for bj in range(bi, nb):
+                cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
+                t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
+                                   gidbits=gidbits)
+                full[rows, cols] = t
+                if bj != bi:
+                    full[cols, rows] = t.T
+    with span("allpairs.download"):
+        return full[:g, :g].cpu().numpy()
 
 
 # --- over a mesh ------------------------------------------------------------
@@ -359,17 +362,19 @@ def mesh_tile_sweep(mesh: Mesh, caches: Dict[torch.device, torch.Tensor],
     first = next(iter(caches))
     full = torch.zeros((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
                        device=first)
-    for s in mesh.local_slots():
-        cache = caches[mesh.devices[s]]
-        for bi, bj in pairs[split_range(pp, mesh.size, s)]:
-            t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
-                               gidbits=GIDBITS).to(first)
-            rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
-            cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
-            full[rows, cols] = t
-            if bj != bi:
-                full[cols, rows] = t.T
-    return all_reduce(full[:g, :g]).cpu().numpy()
+    with span("allpairs.tiles"):
+        for s in mesh.local_slots():
+            cache = caches[mesh.devices[s]]
+            for bi, bj in pairs[split_range(pp, mesh.size, s)]:
+                t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
+                                   gidbits=GIDBITS).to(first)
+                rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
+                cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
+                full[rows, cols] = t
+                if bj != bi:
+                    full[cols, rows] = t.T
+    with span("allpairs.download"):
+        return all_reduce(full[:g, :g]).cpu().numpy()
 
 
 def mesh_all_pairs_packed(mesh: Mesh, keys_np: np.ndarray, *,

@@ -12,9 +12,8 @@ identity.
 Backends: NCCL where each rank owns its own GPU, gloo on the CPU.  Gloo's
 CUDA support covers broadcast and all-reduce only, so a collective over a
 gloo group stages a CUDA tensor through host memory, and one over an NCCL
-group stages a host tensor through the rank's GPU; the bytes staged are
-counted (observability counter `collective_staged_bytes`).  Two gloo
-ranks may share one GPU, which NCCL refuses.
+group stages a host tensor through the rank's GPU.  Two gloo ranks may
+share one GPU, which NCCL refuses.
 """
 from __future__ import annotations
 
@@ -24,7 +23,6 @@ from typing import List, Optional, Set, Tuple
 import torch
 import torch.distributed as dist
 
-from ..observability import count as obs_count
 from .mesh import Mesh, data_rows, make_mesh, pad_to_multiple, process_rank
 
 
@@ -143,7 +141,6 @@ def all_gather(t: torch.Tensor) -> List[torch.Tensor]:
     parts = [torch.empty_like(src) for _ in range(world_size())]
     dist.all_gather(parts, src)
     if d != t.device:
-        obs_count("collective_staged_bytes", t.nbytes * (1 + world_size()))
         parts = [p.to(t.device) for p in parts]
     return parts
 
@@ -158,6 +155,5 @@ def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     dist.all_reduce(src, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op])
     if d != t.device:
-        obs_count("collective_staged_bytes", 2 * t.nbytes)
         src = src.to(t.device)
     return src

@@ -195,7 +195,7 @@ class MeshSketcher(FracMinHashSketcher):
                 log.exception("skipping unreadable genome %s", small[i])
                 return empty
 
-        with span("sketching", log):
+        with span("sketch.files", log):
             streamed = {}
             for p in sorted(big):
                 try:
@@ -205,7 +205,8 @@ class MeshSketcher(FracMinHashSketcher):
                         raise
                     log.exception("skipping unreadable genome %s", p)
                     streamed[p] = self._empty_sketch(p)
-            with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            with span("sketch.parse_wait"), \
+                    cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
                 packed = list(ex.map(read, range(len(small))))
             sketched = iter(self.sketch_packed_batch(packed, names=small)
                             if small else [])

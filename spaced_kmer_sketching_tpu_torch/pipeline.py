@@ -25,6 +25,20 @@ Each block is presorted as soon as it leaves a lookahead window of
 LOOKAHEAD blocks, so raw sketch keys wait in device memory for at most a
 few blocks.
 
+Each phase is a span (observability.span; a range on the profiler's
+timeline while one records) whose seconds `phases` books: pipeline.job
+(the call), pipeline.attempt (one sketch pass, first dispatch to the
+assembled cache), pipeline.ingest_wait and pipeline.ingest (ingest_s,
+ingest_work_s), pipeline.dispatch and pipeline.block_read (sketch_s),
+pipeline.presort and pipeline.assemble (presort_s), allpairs.sweep
+(allpairs_s).  The three taken once a dispatch (ingest_wait, ingest,
+dispatch) are timed but open no range: a gap under them is named by the
+aten op the host was in, inside pipeline.attempt.  restart_s books the
+calls that overflowed, from their start to the raise.  The counter
+pipeline_host_syncs counts the host's blocking reads: a block's counts,
+the assembled cache's synchronize (on a GPU), a sampled genome's keys,
+the matrix.
+
 Given a mesh of one process (JAX pipeline.py:418-725; `MeshDevicePipeline`
 is the JAX name for it) the same flow runs over its slots: each dispatch
 carries one block a slot, sketched (K7, the finish) and presorted (K5) on
@@ -50,7 +64,7 @@ import torch
 
 from .ingest.fasta import PackedSeqs, read_fasta
 from .models.fracminhash import FracMinHashSketcher, Sketch
-from .observability import get_logger, span
+from .observability import count, get_logger, span
 from .ops.cuda.extract import pack2bit, packed_body
 from .ops.gram import _guard_words, pack_plan, presort_block_packed
 from .parallel.allpairs import BLOCK, GIDBITS, mesh_tile_sweep
@@ -69,6 +83,7 @@ class PipelineResult:
     inter: np.ndarray            # (G, G) int32 |A_i ∩ A_j|
     counts: np.ndarray           # (G,) int32 sketch sizes (ANI denominators)
     phases: Dict[str, float]     # seconds per phase (wall; phases overlap)
+                                 # (restart_s: the attempts that overflowed)
     bytes_h2d: int               # host->device payload bytes (ingest)
     bytes_d2h: int               # device->host payload bytes (counts, matrix)
     sample_keys: Dict[int, np.ndarray]   # gid -> (count, 2) u64 sketch keys
@@ -233,21 +248,29 @@ class DevicePipeline:
         (maximum) genome length shaping every sketch step.  Returns the
         full ordered (G, G) intersection matrix (reference all-pairs incl.
         self, src/generators.hpp:45-58).  A sketch that overflows the
-        capacity restarts the run at a larger one."""
+        capacity restarts the run at a larger one; phases["restart_s"]
+        books the seconds of the attempts that overflowed."""
         cfg = self.sk.config
         nw = n - cfg.window + 1
         if nw <= 0:
             raise ValueError("nominal genome length below window")
         capacity = cfg.capacity_for(nw)
-        while True:
-            try:
-                return self._all_pairs_once(source, g, n, capacity,
-                                            set(verify_ids))
-            except _CapacityOverflow as e:
-                log.info("pipeline sketch overflow -> retry cap=%d",
-                         e.capacity)
-                capacity = e.capacity
-                self.restarts += 1
+        restart_s = 0.0
+        with span("pipeline.job", log):
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    res = self._all_pairs_once(source, g, n, capacity,
+                                               set(verify_ids))
+                except _CapacityOverflow as e:
+                    log.info("pipeline sketch overflow -> retry cap=%d",
+                             e.capacity)
+                    capacity = e.capacity
+                    restart_s += time.perf_counter() - t0
+                    self.restarts += 1
+                else:
+                    res.phases["restart_s"] = restart_s
+                    return res
 
     def _all_pairs_once(self, source, g: int, n: int, capacity: int,
                         verify_ids) -> PipelineResult:
@@ -273,30 +296,33 @@ class DevicePipeline:
             nonlocal bytes_d2h
             # reading the scalars waits for this block's sketches: device
             # time, booked under sketch_s
-            t0 = time.perf_counter()
-            raws = torch.cat(raws_d).cpu().numpy()    # one slot's rows
-            cnt = torch.cat(counts_d).cpu().numpy()
-            phases["sketch_s"] += time.perf_counter() - t0
+            with span("pipeline.block_read") as read:
+                raws = torch.cat(raws_d).cpu().numpy()    # one slot's rows
+                cnt = torch.cat(counts_d).cpu().numpy()
+            count("pipeline_host_syncs")
+            phases["sketch_s"] += read.seconds
             bytes_d2h += raws.nbytes + cnt.nbytes
             if int(raws.max()) > capacity:
                 raise _CapacityOverflow(
                     1 << math.ceil(math.log2(int(raws.max()) + 1)))
-            t0 = time.perf_counter()
-            i0 = b_idx * block
-            counts[i0:i0 + cnt.shape[0]] = cnt
-            # the tile scan's work is linear in the cache width: trim each
-            # block to its own largest count (a power of two >= 128)
-            cap_b = min(capacity, max(128, 1 << int(math.ceil(math.log2(
-                max(1, int(cnt.max(initial=1))))))))
-            kb = torch.cat([p[:, :cap_b] for p in keyparts])
-            if kb.shape[0] < block:        # ragged tail: sentinel sketches
-                pad = torch.full((block - kb.shape[0], cap_b, kw), -1,
-                                 dtype=torch.int32, device=kb.device)
-                kb = torch.cat([kb, pad])
-            blocks[b_idx] = presort_block_packed(
-                kb.contiguous(), key_bits=key_bits, gidbits=GIDBITS, pw=pw)
-            keyparts.clear()               # frees the raw sketch keys
-            phases["presort_s"] += time.perf_counter() - t0
+            with span("pipeline.presort") as presort:
+                i0 = b_idx * block
+                counts[i0:i0 + cnt.shape[0]] = cnt
+                # the tile scan's work is linear in the cache width: trim
+                # each block to its own largest count (a power of two >=
+                # 128)
+                cap_b = min(capacity, max(128, 1 << int(math.ceil(
+                    math.log2(max(1, int(cnt.max(initial=1))))))))
+                kb = torch.cat([p[:, :cap_b] for p in keyparts])
+                if kb.shape[0] < block:    # ragged tail: sentinel sketches
+                    pad = torch.full((block - kb.shape[0], cap_b, kw), -1,
+                                     dtype=torch.int32, device=kb.device)
+                    kb = torch.cat([kb, pad])
+                blocks[b_idx] = presort_block_packed(
+                    kb.contiguous(), key_bits=key_bits, gidbits=GIDBITS,
+                    pw=pw)
+                keyparts.clear()           # frees the raw sketch keys
+            phases["presort_s"] += presort.seconds
 
         # the NEXT dispatch's source batch is fetched on one worker thread
         # while the main thread packs, uploads and enqueues the current
@@ -306,26 +332,25 @@ class DevicePipeline:
         ingest_work = [0.0]
 
         def timed_source(a, b):
-            t = time.perf_counter()
-            out = source(a, b)
-            ingest_work[0] += time.perf_counter() - t
+            with span("pipeline.ingest", trace=False) as work:
+                out = source(a, b)
+            ingest_work[0] += work.seconds
             return out
 
-        t_span0 = time.perf_counter()
-        with span("sketching", log), \
+        with span("pipeline.attempt", log) as attempt, \
                 cf.ThreadPoolExecutor(max_workers=1) as ex:
             fut = ex.submit(timed_source, 0, min(g, dispatch))
             for s0 in range(0, g, dispatch):
                 s1 = min(g, s0 + dispatch)
-                t0 = time.perf_counter()
-                batch = fut.result()
-                phases["ingest_s"] += time.perf_counter() - t0
+                with span("pipeline.ingest_wait", trace=False) as wait:
+                    batch = fut.result()
+                phases["ingest_s"] += wait.seconds
                 if s1 < g:
                     fut = ex.submit(timed_source, s1, min(g, s1 + dispatch))
-                t0 = time.perf_counter()
-                parts, h2d = self._dispatch(batch, n, capacity)
+                with span("pipeline.dispatch", trace=False) as disp:
+                    parts, h2d = self._dispatch(batch, n, capacity)
                 bytes_h2d += h2d
-                phases["sketch_s"] += time.perf_counter() - t0
+                phases["sketch_s"] += disp.seconds
                 # route block-aligned slices of each slot's rows into
                 # per-block pending slots (dispatch and block divide one
                 # another, so a dispatch never splits a block unevenly);
@@ -351,25 +376,27 @@ class DevicePipeline:
                     finalize(*pending.pop(0))
             while pending:
                 finalize(*pending.pop(0))
-            t0 = time.perf_counter()
-            rows_max = max(c.shape[1] for c in blocks)
-            caches = {}
-            for d in self.mesh.distinct():
-                cache = torch.full((nb, pw, rows_max, 128), -1,
-                                   dtype=torch.int32, device=d)
-                for b, c in enumerate(blocks):
-                    # all-ones rows appended to a sorted packed stream keep
-                    # it sorted, so the pad to the widest block is exact
-                    cache[b, :, :c.shape[1]] = c.to(d)
-                caches[d] = cache
-            del blocks
-            for d in caches:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
-            phases["presort_s"] += time.perf_counter() - t0
-        span_wall = time.perf_counter() - t_span0
+            with span("pipeline.assemble") as assemble:
+                rows_max = max(c.shape[1] for c in blocks)
+                caches = {}
+                for d in self.mesh.distinct():
+                    cache = torch.full((nb, pw, rows_max, 128), -1,
+                                       dtype=torch.int32, device=d)
+                    for b, c in enumerate(blocks):
+                        # all-ones rows appended to a sorted packed stream
+                        # keep it sorted, so the pad to the widest block
+                        # is exact
+                        cache[b, :, :c.shape[1]] = c.to(d)
+                    caches[d] = cache
+                del blocks
+                for d in caches:
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
+                        count("pipeline_host_syncs")
+            phases["presort_s"] += assemble.seconds
         phases["ingest_work_s"] = ingest_work[0]
-        hidden = max(0.0, ingest_work[0] + phases["sketch_s"] - span_wall)
+        hidden = max(0.0, ingest_work[0] + phases["sketch_s"]
+                     - attempt.seconds)
         denom = min(ingest_work[0], phases["sketch_s"])
         phases["overlap_eff"] = round(hidden / denom, 3) if denom > 0.05 \
             else None
@@ -381,13 +408,14 @@ class DevicePipeline:
             samples[i] = Sketch(keys=keys[:c].cpu().numpy().view(np.uint32),
                                 count=c, window=cfg.window,
                                 mask=self.sk.mask).keys_u64()
+            count("pipeline_host_syncs")
             bytes_d2h += c * 16
 
-        with span("comparison", log):
-            t0 = time.perf_counter()
+        with span("allpairs.sweep", log) as sweep:
             out = mesh_tile_sweep(self.mesh, caches, g)
-            phases["allpairs_s"] = time.perf_counter() - t0
-            bytes_d2h += g * g * 4
+        count("pipeline_host_syncs")             # the matrix's download
+        phases["allpairs_s"] = sweep.seconds
+        bytes_d2h += g * g * 4
 
         phases["total_s"] = time.perf_counter() - t_start
         return PipelineResult(inter=out, counts=counts, phases=phases,

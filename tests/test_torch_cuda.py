@@ -778,6 +778,32 @@ def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
     np.testing.assert_array_equal(np.diag(out.inter), out.counts)
 
 
+def test_pipeline_host_syncs_on_the_gpu(dev):
+    """pipeline_host_syncs on the card: a block read each, the assembled
+    cache's synchronize, one sampled genome's keys and the download; the
+    per-dispatch spans open no range under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.pipeline import (DevicePipeline,
+                                                          device_source)
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
+                             device="cuda")
+    pipe = DevicePipeline(sk, dispatch=64)
+    before = observability.counters().get("pipeline_host_syncs", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = pipe.all_pairs(device_source(200, 100_000, seed=1), 200,
+                             100_000, verify_ids=[3])
+    syncs = observability.counters()["pipeline_host_syncs"] - before
+    names = [e.name for e in prof.events()]
+    reads = names.count("pipeline.block_read")
+    if not pipe.restarts:
+        assert reads == 2                        # 200 genomes: 2 blocks
+    assert names.count("pipeline.assemble") == 1
+    assert "pipeline.dispatch" not in names
+    assert syncs == reads + 3
+    assert (out.phases["restart_s"] > 0) == (pipe.restarts > 0)
+
+
 @pytest.mark.parametrize("window,k,plane", [(20, 16, "runs"),
                                             (1, 1, "runs"), (64, 40, "runs"),
                                             (20, 16, "hard"),

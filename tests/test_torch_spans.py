@@ -1,0 +1,199 @@
+"""The port's spans and host-sync counter (observability.py): a span's
+seconds, its range on the profiler's timeline only while a profiler
+records, the pipeline's and the tile sweep's spans nested in a job, the
+restart's seconds and the count of the host's blocking reads.
+
+The port runs on the CPU, where every kernel wrapper takes its plain
+PyTorch version; the profiler records the CPU alone.
+"""
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from spaced_kmer_sketching_tpu_torch import observability
+from spaced_kmer_sketching_tpu_torch.config import SketchConfig
+from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
+    FracMinHashSketcher, clear_upload_cache)
+from spaced_kmer_sketching_tpu_torch.observability import span
+from spaced_kmer_sketching_tpu_torch.parallel.mesh import make_mesh
+from spaced_kmer_sketching_tpu_torch.pipeline import (
+    DevicePipeline, MeshDevicePipeline, codes_source)
+
+SYNCS = "pipeline_host_syncs"
+
+
+def traced(fn):
+    """fn()'s result and its host ranges: {name: [(start, end) us]}."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = {}
+    for e in prof.events():
+        ranges.setdefault(e.name, []).append((e.time_range.start,
+                                              e.time_range.end))
+    return out, ranges
+
+
+def inside(inner, outer) -> bool:
+    return any(o0 <= inner[0] and inner[1] <= o1 for o0, o1 in outer)
+
+
+def test_span_books_float_seconds_and_no_counter():
+    before = observability.counters()
+    with span("test.outer") as outer:
+        with span("test.inner") as inner:
+            sum(range(10_000))
+    assert isinstance(outer.seconds, float) and isinstance(inner.seconds,
+                                                           float)
+    assert 0 < inner.seconds <= outer.seconds
+    assert observability.counters() == before
+
+
+def test_span_seconds_are_set_when_the_block_raises():
+    with pytest.raises(KeyError):
+        with span("test.raises") as s:
+            raise KeyError
+    assert s.seconds > 0
+
+
+def test_span_opens_a_range_only_while_a_profiler_records(monkeypatch):
+    """No record_function without a profiler (it costs even then); under
+    one, a range of the span's name.  The guard is torch's private
+    `_is_profiler_enabled`: a torch that drops it fails here."""
+    opened = []
+    real = observability.record_function
+    monkeypatch.setattr(observability, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    assert torch.autograd.profiler._is_profiler_enabled is False
+    with span("test.off"):
+        pass
+    assert opened == []
+
+    def on():
+        with span("test.on"):
+            pass
+    _, ranges = traced(on)
+    assert opened == ["test.on"] and len(ranges["test.on"]) == 1
+    assert torch.autograd.profiler._is_profiler_enabled is False
+
+
+def test_untraced_span_opens_no_range_under_the_profiler(monkeypatch):
+    """`trace=False`: timed, and no range even while a profiler records."""
+    opened = []
+    real = observability.record_function
+    monkeypatch.setattr(observability, "record_function",
+                        lambda name: opened.append(name) or real(name))
+
+    def run():
+        with span("test.timed", trace=False) as s:
+            sum(range(10_000))
+        return s
+    s, ranges = traced(run)
+    assert opened == [] and "test.timed" not in ranges
+    assert s.seconds > 0
+
+
+def test_pipeline_spans_nest_in_the_job():
+    """A DevicePipeline job under the profiler: pipeline.job holds the
+    attempt, its block reads, presorts and the assembly, and the sweep
+    with its tile launches and download.  The spans taken once a dispatch
+    (the prefetch wait, the source, the enqueue) are timed into phases
+    and open no range."""
+    g, n = 20, 3000
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=20),
+                             device="cpu")
+    res, ranges = traced(lambda: DevicePipeline(sk, dispatch=8).all_pairs(
+        codes_source(g, n, seed=1), g, n))
+    (job,) = ranges["pipeline.job"]
+    for name in ("pipeline.dispatch", "pipeline.ingest_wait",
+                 "pipeline.ingest"):
+        assert name not in ranges, name
+    for name, times in (("pipeline.attempt", 1),
+                        ("pipeline.block_read", 1), ("pipeline.presort", 1),
+                        ("pipeline.assemble", 1), ("allpairs.sweep", 1),
+                        ("allpairs.tiles", 1), ("allpairs.download", 1)):
+        assert len(ranges[name]) == times, name
+        assert all(inside(r, [job]) for r in ranges[name]), name
+    for name in ("pipeline.block_read", "pipeline.presort",
+                 "pipeline.assemble"):
+        assert all(inside(r, ranges["pipeline.attempt"])
+                   for r in ranges[name]), name
+    for name in ("allpairs.tiles", "allpairs.download"):
+        assert inside(ranges[name][0], ranges["allpairs.sweep"]), name
+    assert res.phases["restart_s"] == 0.0
+    assert res.phases["allpairs_s"] > 0 and res.phases["sketch_s"] > 0
+    assert res.phases["ingest_work_s"] > 0
+
+
+@pytest.mark.parametrize("cap", [256, 0])
+def test_restart_seconds_and_host_syncs(cap):
+    """A capacity of 256 overflows the first attempts (as
+    test_pipeline_capacity_overflow_retry forces it): restart_s is their
+    seconds and their block reads are counted; without an overflow
+    restart_s is 0.  Syncs: a block read each, one sampled genome's keys,
+    one download; the assembly synchronizes nothing on the CPU."""
+    g, n = 6, 40_000
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=20,
+                                          sketch_capacity=cap), device="cpu")
+    pipe = DevicePipeline(sk)
+    before = observability.counters().get(SYNCS, 0)
+    res, ranges = traced(lambda: pipe.all_pairs(codes_source(g, n, seed=4),
+                                                g, n, verify_ids=[1]))
+    syncs = observability.counters()[SYNCS] - before
+    assert (pipe.restarts > 0) == (cap > 0)
+    attempts = sorted(ranges["pipeline.attempt"])
+    assert len(attempts) == 1 + pipe.restarts
+    reads = len(ranges["pipeline.block_read"])
+    assert reads == len(attempts)                # one block an attempt
+    assert len(ranges["pipeline.assemble"]) == 1
+    assert syncs == reads + 1 + len(ranges["allpairs.download"]) == \
+        reads + 2
+    wasted = sum(e - s for s, e in attempts[:-1]) / 1e6
+    if pipe.restarts:
+        assert res.phases["restart_s"] > 0
+        assert res.phases["restart_s"] == pytest.approx(wasted, rel=0.5,
+                                                        abs=1e-3)
+    else:
+        assert res.phases["restart_s"] == 0.0
+
+
+def test_mesh_sweep_spans_and_syncs():
+    """Over two CPU slots (two caches, the tiles split over the slots): the
+    same spans, one download through the mesh route's all-reduce, and a
+    sync a block read and the download (no synchronize on the CPU)."""
+    g, n = 100, 1400
+    sk = FracMinHashSketcher(SketchConfig(window=14, k=10, scale=4),
+                             device="cpu")
+    pipe = MeshDevicePipeline(sk, make_mesh(devices=["cpu", "cpu:0"]))
+    before = observability.counters().get(SYNCS, 0)
+    res, ranges = traced(lambda: pipe.all_pairs(codes_source(g, n, seed=3),
+                                                g, n))
+    syncs = observability.counters()[SYNCS] - before
+    assert len(ranges["allpairs.download"]) == 1
+    assert inside(ranges["allpairs.tiles"][0], ranges["allpairs.sweep"])
+    assert syncs == len(ranges["pipeline.block_read"]) + 1
+    np.testing.assert_array_equal(np.diagonal(res.inter), res.counts)
+
+
+def test_sketch_files_spans(tmp_path):
+    """The sweep's host path: sketch.files holds the parse wait, the
+    upload cache's digest and a pack and upload a new genome; a second
+    pass of the same files packs nothing."""
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(2):
+        p = tmp_path / f"g{i}.fa"
+        seq = "".join("ACGT"[c] for c in rng.integers(0, 4, 3000))
+        p.write_text(f">g{i}\n{seq}\n")
+        paths.append(str(p))
+    clear_upload_cache()
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=20),
+                             device="cpu")
+    for packs in (2, 0):
+        _, ranges = traced(lambda: sk.sketch_files(paths))
+        (files,) = ranges["sketch.files"]
+        for name in ("sketch.parse_wait", "sketch.digest"):
+            assert len(ranges[name]) == 1 and inside(ranges[name][0],
+                                                     [files]), name
+        assert len(ranges.get("sketch.pack_upload", [])) == packs
+    clear_upload_cache()
