@@ -25,19 +25,30 @@ Each block is presorted as soon as it leaves a lookahead window of
 LOOKAHEAD blocks, so raw sketch keys wait in device memory for at most a
 few blocks.
 
+A genome whose sketch overflows the capacity (its raw kept count, read
+with the block's counts, exceeds it) is sketched again alone, with the
+others of its block that overflowed, at the power of two above that
+count, doubling until none overflows, and spliced into its block before
+the presort; the rest of the run keeps its capacity, unless the genome
+holds more kept windows than the capacity (raw_kept > capacity + 1, not
+just a row's chance overflow): the dispatches after it then take the
+larger one.  No pass is thrown away.
+
 Each phase is a span (observability.span; a range on the profiler's
 timeline while one records) whose seconds `phases` books: pipeline.job
-(the call), pipeline.attempt (one sketch pass, first dispatch to the
+(the call), pipeline.attempt (the sketch pass, first dispatch to the
 assembled cache), pipeline.ingest_wait and pipeline.ingest (ingest_s,
 ingest_work_s), pipeline.dispatch and pipeline.block_read (sketch_s),
+pipeline.redo (redo_s: a block's re-sketch, inside pipeline.attempt),
 pipeline.presort and pipeline.assemble (presort_s), allpairs.sweep
 (allpairs_s).  The three taken once a dispatch (ingest_wait, ingest,
 dispatch) are timed but open no range: a gap under them is named by the
-aten op the host was in, inside pipeline.attempt.  restart_s books the
-calls that overflowed, from their start to the raise.  The counter
-pipeline_host_syncs counts the host's blocking reads: a block's counts,
-the assembled cache's synchronize (on a GPU), a sampled genome's keys,
-the matrix.
+aten op the host was in, inside pipeline.attempt.  restart_s (and the
+pipeline's `restarts`) read 0: they booked the whole-run restart this
+re-sketch replaced.  The counter pipeline_host_syncs counts the host's
+blocking reads: a block's counts, a re-sketch's counts, the assembled
+cache's synchronize (on a GPU), a sampled genome's keys, the matrix;
+pipeline_sketch_redos counts the re-sketch dispatches.
 
 Given a mesh of one process (JAX pipeline.py:418-725; `MeshDevicePipeline`
 is the JAX name for it) the same flow runs over its slots: each dispatch
@@ -83,17 +94,11 @@ class PipelineResult:
     inter: np.ndarray            # (G, G) int32 |A_i ∩ A_j|
     counts: np.ndarray           # (G,) int32 sketch sizes (ANI denominators)
     phases: Dict[str, float]     # seconds per phase (wall; phases overlap)
-                                 # (restart_s: the attempts that overflowed)
+                                 # (redo_s: the re-sketches; restart_s 0)
     bytes_h2d: int               # host->device payload bytes (ingest)
     bytes_d2h: int               # device->host payload bytes (counts, matrix)
     sample_keys: Dict[int, np.ndarray]   # gid -> (count, 2) u64 sketch keys
     cache_cap: int = 0           # presort cache width (keys per genome)
-
-
-class _CapacityOverflow(Exception):
-    def __init__(self, capacity: int):
-        super().__init__(capacity)
-        self.capacity = capacity
 
 
 # --- genome sources ---------------------------------------------------------
@@ -102,6 +107,11 @@ class _CapacityOverflow(Exception):
 # ids [s0, s1).  PackedSeqs batches are packed on the host (2-bit words)
 # and uploaded compact; _DevicePlanes carries packed planes already on the
 # device (e.g. drawn by the device generator), so ingest moves no bytes.
+# The pipeline asks for each dispatch's range, and asks again for the range
+# of a dispatch that held an overflowing genome: the same range must yield
+# the same genomes, and the second call comes from the pipeline's thread
+# while its prefetch thread may be in the source for the next batch
+# (file_source, codes_source and device_source are safe for both).
 
 @dataclasses.dataclass
 class _DevicePlanes:
@@ -178,6 +188,33 @@ def _pack_host_batch(batch: Sequence[PackedSeqs], n: int):
     return p.view(np.int32), bounds, meta[0], meta[1]
 
 
+def _refetch(source: Callable, g: int, dispatch: int, gids: Sequence[int]):
+    """Genomes `gids` again, each taken from its dispatch's range asked of
+    the source again (device_source draws a batch from its start, so a
+    genome is only the same within the range it was asked in), as one
+    batch of the source's kind."""
+    planes, host = [], []
+    for d0 in sorted({int(i) // dispatch * dispatch for i in gids}):
+        batch = source(d0, min(g, d0 + dispatch))
+        rows = [int(i) - d0 for i in gids if d0 <= i < d0 + dispatch]
+        if isinstance(batch, _DevicePlanes):
+            idx = torch.tensor(rows, device=batch.p.device)
+            planes.append([getattr(batch, f.name).index_select(0, idx)
+                           for f in dataclasses.fields(batch)])
+        else:
+            host.extend(batch[r] for r in rows)
+    return _DevicePlanes(*map(torch.cat, zip(*planes))) if planes else host
+
+
+def _to_width(keys: torch.Tensor, width: int) -> torch.Tensor:
+    """(rows, w, kw) sketch keys cut or padded with all-ones (empty) slots
+    to `width`."""
+    if keys.shape[1] >= width:
+        return keys[:, :width]
+    return torch.nn.functional.pad(keys, (0, 0, 0, width - keys.shape[1]),
+                                   value=-1)
+
+
 # --- the pipeline -----------------------------------------------------------
 
 class DevicePipeline:
@@ -211,7 +248,9 @@ class DevicePipeline:
         self.sk = sketcher
         self.mesh = mesh
         self.dispatch = dispatch
-        self.restarts = 0      # whole-run restarts after a sketch overflow
+        self.restarts = 0      # whole-run restarts: none since an overflow
+                               # re-sketches its genomes alone (kept, 0,
+                               # for its readers)
 
     # -- sketch dispatch ------------------------------------------------
     def _dispatch(self, batch, n: int, capacity: int):
@@ -241,39 +280,57 @@ class DevicePipeline:
             scale=cfg.scale, variant=cfg.hash_variant, capacity=capacity)
         return step(*args, self.sk.mask.words_u32), h2d
 
+    def _redo(self, source, g: int, n: int, gids, raw: int):
+        """Sketch genomes `gids` (raw kept counts up to `raw`) again at the
+        power of two above `raw`, doubling until none overflows (as
+        FracMinHashSketcher._collect_sketch).  Returns their keys (len,
+        cap, 4) on the first slot's device, counts, cap and the bytes
+        uploaded."""
+        batch = _refetch(source, g, self.dispatch, gids)
+        m = len(gids)
+        h2d = 0
+        while True:
+            cap = 1 << math.ceil(math.log2(raw + 1))
+            parts, up = self._dispatch(batch, n, cap)
+            count("pipeline_sketch_redos")
+            h2d += up
+            raws = np.concatenate([p.raw_kept.cpu().numpy()
+                                   for p in parts])[:m]
+            count("pipeline_host_syncs")
+            raw = int(raws.max())
+            if raw <= cap:
+                break
+            log.info("pipeline re-sketch overflow -> cap=%d", cap)
+        d = parts[0].keys.device
+        keys = torch.cat([p.keys.to(d) for p in parts])[:m]
+        counts = np.concatenate([p.count.cpu().numpy() for p in parts])[:m]
+        return keys, counts, cap, h2d
+
     # -- run --------------------------------------------------------------
     def all_pairs(self, source: Callable, g: int, n: int, *,
                   verify_ids: Sequence[int] = ()) -> PipelineResult:
         """source(s0, s1) yields genomes [s0, s1); `n` is the nominal
         (maximum) genome length shaping every sketch step.  Returns the
         full ordered (G, G) intersection matrix (reference all-pairs incl.
-        self, src/generators.hpp:45-58).  A sketch that overflows the
-        capacity restarts the run at a larger one; phases["restart_s"]
-        books the seconds of the attempts that overflowed."""
+        self, src/generators.hpp:45-58).
+
+        A sketch that overflows the capacity is taken again alone (its
+        dispatch's range asked of `source` a second time, from this
+        thread, while the prefetch thread may be in the source: see the
+        sources above) and re-sketched at a larger capacity before its
+        block's presort; phases["redo_s"] books those seconds.  A genome
+        with more kept windows than the capacity raises it for the
+        dispatches after its block."""
         cfg = self.sk.config
         nw = n - cfg.window + 1
         if nw <= 0:
             raise ValueError("nominal genome length below window")
-        capacity = cfg.capacity_for(nw)
-        restart_s = 0.0
         with span("pipeline.job", log):
-            while True:
-                t0 = time.perf_counter()
-                try:
-                    res = self._all_pairs_once(source, g, n, capacity,
-                                               set(verify_ids))
-                except _CapacityOverflow as e:
-                    log.info("pipeline sketch overflow -> retry cap=%d",
-                             e.capacity)
-                    capacity = e.capacity
-                    restart_s += time.perf_counter() - t0
-                    self.restarts += 1
-                else:
-                    res.phases["restart_s"] = restart_s
-                    return res
+            return self._job(source, g, n, cfg.capacity_for(nw),
+                             set(verify_ids))
 
-    def _all_pairs_once(self, source, g: int, n: int, capacity: int,
-                        verify_ids) -> PipelineResult:
+    def _job(self, source, g: int, n: int, capacity: int,
+             verify_ids) -> PipelineResult:
         cfg = self.sk.config
         block, dispatch = BLOCK, self.dispatch
         key_bits = min(128, 2 * cfg.window)
@@ -281,19 +338,20 @@ class DevicePipeline:
         pw = pack_plan(key_bits, GIDBITS)
         nb = (g + block - 1) // block
 
-        phases = {"ingest_s": 0.0, "sketch_s": 0.0, "presort_s": 0.0,
-                  "allpairs_s": 0.0}
+        phases = {"ingest_s": 0.0, "sketch_s": 0.0, "redo_s": 0.0,
+                  "restart_s": 0.0, "presort_s": 0.0, "allpairs_s": 0.0}
         bytes_h2d = 0
         bytes_d2h = 0
         sample_keys: Dict[int, torch.Tensor] = {}
         blocks: List = [None] * nb   # per-block (pw, rows_b, 128) caches
         counts = np.zeros(g, np.int32)
         t_start = time.perf_counter()
-        # per OPEN block: (index, key parts, raw_kept parts, count parts)
+        # per OPEN block: (index, key parts, raw_kept parts, count parts);
+        # a part's width is the capacity it was sketched at
         pending: List = []
 
         def finalize(b_idx, keyparts, raws_d, counts_d):
-            nonlocal bytes_d2h
+            nonlocal bytes_h2d, bytes_d2h, capacity
             # reading the scalars waits for this block's sketches: device
             # time, booked under sketch_s
             with span("pipeline.block_read") as read:
@@ -302,18 +360,41 @@ class DevicePipeline:
             count("pipeline_host_syncs")
             phases["sketch_s"] += read.seconds
             bytes_d2h += raws.nbytes + cnt.nbytes
-            if int(raws.max()) > capacity:
-                raise _CapacityOverflow(
-                    1 << math.ceil(math.log2(int(raws.max()) + 1)))
+            i0 = b_idx * block
+            caps = np.repeat([p.shape[1] for p in keyparts],
+                             [p.shape[0] for p in keyparts])
+            width = max(p.shape[1] for p in keyparts)
+            bad = np.nonzero(raws > caps)[0]
+            if bad.size:
+                with span("pipeline.redo", log) as redo:
+                    gids = i0 + bad
+                    log.info("pipeline sketch overflow: %d genome(s) of "
+                             "block %d re-sketched", bad.size, b_idx)
+                    rkeys, rcnt, rcap, h2d = self._redo(
+                        source, g, n, gids, int(raws[bad].max()))
+                    cnt[bad] = rcnt
+                    bytes_h2d += h2d
+                    bytes_d2h += 8 * bad.size
+                    width = max(width, rcap)
+                    for j, i in enumerate(gids):
+                        if i in verify_ids:
+                            sample_keys[int(i)] = rkeys[j].clone()
+                    if (raws[bad] > caps[bad] + 1).any():
+                        # more kept windows than the capacity, not a
+                        # row's chance overflow: so are the later ones
+                        capacity = max(capacity, rcap)
+                phases["redo_s"] += redo.seconds
             with span("pipeline.presort") as presort:
-                i0 = b_idx * block
                 counts[i0:i0 + cnt.shape[0]] = cnt
                 # the tile scan's work is linear in the cache width: trim
                 # each block to its own largest count (a power of two >=
-                # 128)
-                cap_b = min(capacity, max(128, 1 << int(math.ceil(
+                # 128); parts of another width pad with empty slots
+                cap_b = min(width, max(128, 1 << int(math.ceil(
                     math.log2(max(1, int(cnt.max(initial=1))))))))
-                kb = torch.cat([p[:, :cap_b] for p in keyparts])
+                kb = torch.cat([_to_width(p, cap_b) for p in keyparts])
+                if bad.size:
+                    kb[torch.from_numpy(bad).to(kb.device)] = _to_width(
+                        rkeys[:, :, :kw].to(kb.device), cap_b)
                 if kb.shape[0] < block:    # ragged tail: sentinel sketches
                     pad = torch.full((block - kb.shape[0], cap_b, kw), -1,
                                      dtype=torch.int32, device=kb.device)

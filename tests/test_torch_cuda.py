@@ -779,9 +779,11 @@ def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
 
 
 def test_pipeline_host_syncs_on_the_gpu(dev):
-    """pipeline_host_syncs on the card: a block read each, the assembled
-    cache's synchronize, one sampled genome's keys and the download; the
-    per-dispatch spans open no range under the profiler."""
+    """pipeline_host_syncs on the card: a block read each, a re-sketch's
+    read each (none unless a genome overflows), the assembled cache's
+    synchronize, one sampled genome's keys and the download, in one
+    attempt (no whole-run restart); the per-dispatch spans open no range
+    under the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from spaced_kmer_sketching_tpu_torch import observability
     from spaced_kmer_sketching_tpu_torch.pipeline import (DevicePipeline,
@@ -789,19 +791,65 @@ def test_pipeline_host_syncs_on_the_gpu(dev):
     sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=50),
                              device="cuda")
     pipe = DevicePipeline(sk, dispatch=64)
-    before = observability.counters().get("pipeline_host_syncs", 0)
+    before = observability.counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = pipe.all_pairs(device_source(200, 100_000, seed=1), 200,
                              100_000, verify_ids=[3])
-    syncs = observability.counters()["pipeline_host_syncs"] - before
+    after = observability.counters()
+    syncs = after["pipeline_host_syncs"] - before.get("pipeline_host_syncs",
+                                                      0)
+    redos = after.get("pipeline_sketch_redos", 0) - before.get(
+        "pipeline_sketch_redos", 0)
     names = [e.name for e in prof.events()]
     reads = names.count("pipeline.block_read")
-    if not pipe.restarts:
-        assert reads == 2                        # 200 genomes: 2 blocks
+    assert reads == 2                            # 200 genomes: 2 blocks
+    assert names.count("pipeline.attempt") == 1 and pipe.restarts == 0
     assert names.count("pipeline.assemble") == 1
     assert "pipeline.dispatch" not in names
-    assert syncs == reads + 3
-    assert (out.phases["restart_s"] > 0) == (pipe.restarts > 0)
+    assert ("pipeline.redo" in names) == (redos > 0)
+    assert syncs == reads + redos + 3
+    assert out.phases["restart_s"] == 0.0
+    assert (out.phases["redo_s"] > 0) == (redos > 0)
+
+
+def test_pipeline_resketch_on_the_gpu_matches_native(dev):
+    """One genome of 260 carries 280 codes of a period-7 unit whose one
+    kept window fills ~18 of a row's 16 slots (scale 200): on the card that
+    genome alone is sketched again (one re-sketch dispatch), and its
+    sampled keys, the counts and the sampled pairs equal native sketches
+    and merges."""
+    from spaced_kmer_sketching_tpu_torch import observability
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
+    from spaced_kmer_sketching_tpu_torch.pipeline import DevicePipeline
+    g, n, planted = 260, 20_000, 150
+    unit = np.array([3, 2, 0, 1, 3, 2, 0], np.uint8)
+
+    def src(s0, s1):
+        out = []
+        for i in range(s0, s1):
+            codes = np.random.default_rng(1000 + i).integers(
+                0, 4, n).astype(np.uint8)
+            if i == planted:
+                codes[5000:5280] = np.resize(unit, 280)
+            out.append(PackedSeqs(codes=codes,
+                                  run_lens=np.array([n], np.int64)))
+        return out
+    sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=200),
+                             device="cuda")
+    ids = [3, planted, 259]
+    before = observability.counters().get("pipeline_sketch_redos", 0)
+    res = DevicePipeline(sk, dispatch=32).all_pairs(src, g, n,
+                                                    verify_ids=ids)
+    assert observability.counters()["pipeline_sketch_redos"] - before == 1
+    u64 = [native_sketch(sk, src(i, i + 1)[0]) for i in range(g)]
+    np.testing.assert_array_equal(res.counts, [u.shape[0] for u in u64])
+    for i in ids:
+        np.testing.assert_array_equal(res.sample_keys[i], u64[i])
+        for j in ids:
+            want = u64[i].shape[0] if i == j else native.intersect_sorted(
+                u64[i], u64[j])
+            assert res.inter[i, j] == res.inter[j, i] == want
+    np.testing.assert_array_equal(np.diag(res.inter), res.counts)
 
 
 @pytest.mark.parametrize("window,k,plane", [(20, 16, "runs"),

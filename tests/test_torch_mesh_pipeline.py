@@ -23,7 +23,7 @@ from spaced_kmer_sketching_tpu.models.fracminhash import (
     FracMinHashSketcher as JaxSketcher)
 from spaced_kmer_sketching_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
-from spaced_kmer_sketching_tpu_torch import bench, driver
+from spaced_kmer_sketching_tpu_torch import bench, driver, observability
 from spaced_kmer_sketching_tpu_torch.config import SketchConfig
 from spaced_kmer_sketching_tpu_torch.dryrun import dryrun_multichip
 from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
@@ -80,19 +80,30 @@ def test_mesh_pipeline_matches_jax_mesh_pipeline():
 
 def test_mesh_pipeline_device_source_and_overflow_restart():
     """Device-drawn genomes on a 1 x 1 mesh (one ragged dispatch) with a
-    sketch_capacity that overflows: one whole-run restart;
-    sampled sketches equal the native pipeline on the codes drawn again,
-    their pairs native merges, the matrix is symmetric with the counts on
-    its diagonal."""
+    sketch_capacity that overflows: the overflowing genomes are sketched
+    again in the pass (no whole-run restart), the result equals the
+    uncapped run's; sampled sketches equal the native pipeline on the
+    codes drawn again, their pairs native merges, the matrix is symmetric
+    with the counts on its diagonal."""
     g, n = 100, 3000
     sk = FracMinHashSketcher(SketchConfig(window=16, k=12, scale=6,
                                           sketch_capacity=256), device="cpu")
     pipe = MeshDevicePipeline(sk, make_mesh(devices=["cpu"]))
     src = device_source(g, n, seed=2, device="cpu")
     ids = [0, 57, 99]
+    before = observability.counters().get("pipeline_sketch_redos", 0)
     res = pipe.all_pairs(src, g, n, verify_ids=ids)
-    assert pipe.restarts == 1 and int(res.counts.max()) > 256
+    redos = observability.counters()["pipeline_sketch_redos"] - before
+    assert pipe.restarts == 0 and redos > 0 and int(res.counts.max()) > 256
+    assert res.phases["restart_s"] == 0.0 and res.phases["redo_s"] > 0
     assert res.bytes_h2d == 0
+    uncapped = MeshDevicePipeline(FracMinHashSketcher(
+        SketchConfig(window=16, k=12, scale=6), device="cpu"),
+        make_mesh(devices=["cpu"])).all_pairs(src, g, n, verify_ids=ids)
+    assert_same_result(res, uncapped)
+    for i in ids:
+        np.testing.assert_array_equal(res.sample_keys[i],
+                                      uncapped.sample_keys[i])
     np.testing.assert_array_equal(res.inter, res.inter.T)
     np.testing.assert_array_equal(np.diag(res.inter), res.counts)
     if not native.available():

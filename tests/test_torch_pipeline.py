@@ -21,7 +21,7 @@ from spaced_kmer_sketching_tpu.config import SketchConfig as JaxConfig
 from spaced_kmer_sketching_tpu.models.fracminhash import (
     FracMinHashSketcher as JaxSketcher)
 
-from spaced_kmer_sketching_tpu_torch import driver
+from spaced_kmer_sketching_tpu_torch import driver, observability
 from spaced_kmer_sketching_tpu_torch.config import SketchConfig
 from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
     FracMinHashSketcher)
@@ -32,6 +32,10 @@ from spaced_kmer_sketching_tpu_torch.utils import native
 
 from oracle import random_genome
 from test_driver import write_fasta
+from test_torch_mesh import one_torch_thread  # noqa: F401
+
+SYNCS = "pipeline_host_syncs"
+REDOS = "pipeline_sketch_redos"
 
 
 def host_matrix(sketches):
@@ -145,19 +149,138 @@ def test_device_source_on_the_cpu():
 
 
 def test_pipeline_capacity_overflow_retry():
-    """A tiny sketch_capacity forces the _CapacityOverflow retry; the
-    retried run equals the JAX pipeline's retried run and the uncapped
-    one."""
+    """A tiny sketch_capacity overflows every genome: each is sketched
+    again in its block at a larger capacity, with no whole-run restart
+    (one attempt, restarts and restart_s 0, redo_s booked); the run
+    equals the JAX pipeline's retried run and the uncapped one."""
     g, n = 6, 40_000
-    runs = [DevicePipeline(FracMinHashSketcher(
-        SketchConfig(window=20, k=16, scale=20, sketch_capacity=cap),
-        device="cpu")).all_pairs(codes_source(g, n, seed=4), g, n)
-        for cap in (256, 0)]
+    runs, redos = [], []
+    for cap in (256, 0):
+        pipe = DevicePipeline(FracMinHashSketcher(
+            SketchConfig(window=20, k=16, scale=20, sketch_capacity=cap),
+            device="cpu"))
+        before = observability.counters().get(REDOS, 0)
+        runs.append(pipe.all_pairs(codes_source(g, n, seed=4), g, n))
+        redos.append(observability.counters().get(REDOS, 0) - before)
+        assert pipe.restarts == 0 and runs[-1].phases["restart_s"] == 0.0
     assert int(runs[0].counts.max()) > 256
+    assert redos[0] > 0 and runs[0].phases["redo_s"] > 0
+    assert redos[1] == 0 and runs[1].phases["redo_s"] == 0.0
     assert_same_result(runs[0], jax_pipeline.DevicePipeline(JaxSketcher(
         JaxConfig(window=20, k=16, scale=20, sketch_capacity=256))
     ).all_pairs(jax_pipeline.codes_source(g, n, seed=4), g, n))
     assert_same_result(runs[0], runs[1])
+
+
+# a period-7 unit with one kept window among its 7 at (20, 16, scale 200):
+# a stretch of it keeps ~18 windows in each 128-window row, past the 16
+# slots a row has at that scale and capacity
+UNIT7 = np.array([3, 2, 0, 1, 3, 2, 0], np.uint8)
+
+
+def planted_source(packed_cls, g, n, planted, stretch=280):
+    """Random genomes of n codes; genome `planted` holds `stretch` codes of
+    UNIT7, a chance overflow of a row's slots (its raw kept count one
+    above the capacity) while its sketch fits the capacity."""
+    def load(s0, s1):
+        out = []
+        for i in range(s0, s1):
+            codes = np.random.default_rng(1000 + i).integers(
+                0, 4, n).astype(np.uint8)
+            if i == planted:
+                codes[5000:5000 + stretch] = np.resize(UNIT7, stretch)
+            out.append(packed_cls(codes=codes,
+                                  run_lens=np.array([n], np.int64)))
+        return out
+    return load
+
+
+def test_pipeline_resketches_one_overflowing_genome():
+    """One genome among 136 (two blocks) overflows a row's slots: that
+    genome alone is sketched again (one re-sketch dispatch, its one read),
+    every block is read once, and the matrix and counts equal the JAX
+    pipeline's (which restarts the run); the genome's sampled keys equal
+    its two-step sketch (the sketcher's own retry), JAX's and native."""
+    from spaced_kmer_sketching_tpu.ingest.fasta import (
+        PackedSeqs as JaxPackedSeqs)
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
+    g, n, planted = 136, 20_000, 130
+    ids = [3, planted, 135]
+    cfg = dict(window=20, k=16, scale=200)
+    sk = FracMinHashSketcher(SketchConfig(**cfg), device="cpu")
+    unit = sk.sketch_packed(PackedSeqs(codes=np.resize(UNIT7, 280),
+                                       run_lens=np.array([280])))
+    assert unit.count == 1
+    src = planted_source(PackedSeqs, g, n, planted)
+    pipe = DevicePipeline(sk, dispatch=32)
+    before = observability.counters()
+    res = pipe.all_pairs(src, g, n, verify_ids=ids)
+    after = observability.counters()
+    redos = after.get(REDOS, 0) - before.get(REDOS, 0)
+    syncs = after[SYNCS] - before.get(SYNCS, 0)
+    assert redos == 1 and pipe.restarts == 0
+    # two block reads, the re-sketch's, three sampled genomes, the
+    # download (no synchronize on the CPU)
+    assert syncs == 2 + redos + len(ids) + 1
+    assert res.phases["redo_s"] > 0 and res.phases["restart_s"] == 0.0
+    want_jax = jax_pipeline.DevicePipeline(
+        JaxSketcher(JaxConfig(**cfg)), dispatch=32).all_pairs(
+        planted_source(JaxPackedSeqs, g, n, planted), g, n, verify_ids=ids)
+    assert_same_result(res, want_jax)
+    for i in ids:
+        want = sk.sketch_packed(src(i, i + 1)[0])
+        assert res.counts[i] == want.count
+        np.testing.assert_array_equal(res.sample_keys[i], want.keys_u64())
+        np.testing.assert_array_equal(res.sample_keys[i],
+                                      np.asarray(want_jax.sample_keys[i]))
+    if native.available():
+        pk = src(planted, planted + 1)[0]
+        np.testing.assert_array_equal(res.sample_keys[planted],
+                                      native.sketch_codes(
+                                          pk.codes, pk.run_lens, sk.mask.lo,
+                                          sk.mask.hi, 20, sk.salt, 200,
+                                          False))
+
+
+def test_pipeline_real_overflow_raises_the_capacity(monkeypatch):
+    """A sketch_capacity below the sketch of one genome in every dispatch
+    (raw_kept > capacity + 1, not a row's chance overflow): the blocks
+    sketched before the first block's read re-sketch their long genomes,
+    one re-sketch dispatch each, and the dispatches after it take the
+    larger capacity, so fewer dispatches are re-sketched than run; the
+    result equals the uncapped run's.  With no lookahead block 0 is read
+    as block 1 receives its first dispatch, so two blocks show it."""
+    from spaced_kmer_sketching_tpu_torch import pipeline
+    from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
+    monkeypatch.setattr(pipeline, "LOOKAHEAD", 0)
+    g, n, dispatch = 192, 700, 32
+
+    def src(s0, s1):       # genome 5 of each dispatch long, the rest short
+        out = []
+        for i in range(s0, s1):
+            ln = n if i % dispatch == 5 else 400
+            codes = np.random.default_rng(2000 + i).integers(
+                0, 4, ln).astype(np.uint8)
+            out.append(PackedSeqs(codes=codes,
+                                  run_lens=np.array([ln], np.int64)))
+        return out
+    runs, redos = [], []
+    for cap in (256, 0):
+        sk = FracMinHashSketcher(SketchConfig(window=12, k=8, scale=2,
+                                              sketch_capacity=cap),
+                                 device="cpu")
+        before = observability.counters().get(REDOS, 0)
+        runs.append(DevicePipeline(sk, dispatch=dispatch).all_pairs(
+            src, g, n))
+        redos.append(observability.counters().get(REDOS, 0) - before)
+    long = np.arange(5, g, dispatch)
+    assert int(runs[0].counts[long].min()) > 256 + 1
+    assert int(np.delete(runs[0].counts, long).max()) < 256
+    # block 0 (dispatches 0-3) and block 1's first dispatch, enqueued
+    # before block 0's read, are re-sketched; dispatch 5 is not
+    assert redos == [2, 0] and redos[0] < g // dispatch
+    assert_same_result(runs[0], runs[1])
+    np.testing.assert_array_equal(np.diag(runs[0].inter), runs[0].counts)
 
 
 def test_driver_pipeline_csv_is_the_jax_two_step_csv(tmp_path, monkeypatch,

@@ -1,7 +1,7 @@
 """The port's spans and host-sync counter (observability.py): a span's
 seconds, its range on the profiler's timeline only while a profiler
-records, the pipeline's and the tile sweep's spans nested in a job, the
-restart's seconds and the count of the host's blocking reads.
+records, the pipeline's and the tile sweep's spans nested in a job, an
+overflow's re-sketch and the count of the host's blocking reads.
 
 The port runs on the CPU, where every kernel wrapper takes its plain
 PyTorch version; the profiler records the CPU alone.
@@ -21,6 +21,7 @@ from spaced_kmer_sketching_tpu_torch.pipeline import (
     DevicePipeline, MeshDevicePipeline, codes_source)
 
 SYNCS = "pipeline_host_syncs"
+REDOS = "pipeline_sketch_redos"
 
 
 def traced(fn):
@@ -120,41 +121,48 @@ def test_pipeline_spans_nest_in_the_job():
                    for r in ranges[name]), name
     for name in ("allpairs.tiles", "allpairs.download"):
         assert inside(ranges[name][0], ranges["allpairs.sweep"]), name
-    assert res.phases["restart_s"] == 0.0
+    assert "pipeline.redo" not in ranges
+    assert res.phases["restart_s"] == 0.0 and res.phases["redo_s"] == 0.0
     assert res.phases["allpairs_s"] > 0 and res.phases["sketch_s"] > 0
     assert res.phases["ingest_work_s"] > 0
 
 
 @pytest.mark.parametrize("cap", [256, 0])
 def test_restart_seconds_and_host_syncs(cap):
-    """A capacity of 256 overflows the first attempts (as
-    test_pipeline_capacity_overflow_retry forces it): restart_s is their
-    seconds and their block reads are counted; without an overflow
-    restart_s is 0.  Syncs: a block read each, one sampled genome's keys,
-    one download; the assembly synchronizes nothing on the CPU."""
+    """A capacity of 256 overflows every genome (as
+    test_pipeline_capacity_overflow_retry forces it): they are sketched
+    again inside the one attempt, in a pipeline.redo range whose seconds
+    redo_s books, and no pass is thrown away (restarts 0, restart_s 0.0);
+    without an overflow there is no re-sketch.  Syncs: a block read each,
+    a re-sketch's read each, one sampled genome's keys, one download; the
+    assembly synchronizes nothing on the CPU."""
     g, n = 6, 40_000
     sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=20,
                                           sketch_capacity=cap), device="cpu")
     pipe = DevicePipeline(sk)
-    before = observability.counters().get(SYNCS, 0)
+    before = observability.counters()
     res, ranges = traced(lambda: pipe.all_pairs(codes_source(g, n, seed=4),
                                                 g, n, verify_ids=[1]))
-    syncs = observability.counters()[SYNCS] - before
-    assert (pipe.restarts > 0) == (cap > 0)
-    attempts = sorted(ranges["pipeline.attempt"])
-    assert len(attempts) == 1 + pipe.restarts
+    after = observability.counters()
+    syncs = after[SYNCS] - before.get(SYNCS, 0)
+    redos = after.get(REDOS, 0) - before.get(REDOS, 0)
+    assert pipe.restarts == 0 and res.phases["restart_s"] == 0.0
+    assert (redos > 0) == (cap > 0)
+    (attempt,) = ranges["pipeline.attempt"]
     reads = len(ranges["pipeline.block_read"])
-    assert reads == len(attempts)                # one block an attempt
+    assert reads == 1                            # one block
+    redo = ranges.get("pipeline.redo", [])
+    assert len(redo) == (1 if cap else 0)        # one block re-sketched
+    assert all(inside(r, [attempt]) for r in redo)
     assert len(ranges["pipeline.assemble"]) == 1
-    assert syncs == reads + 1 + len(ranges["allpairs.download"]) == \
-        reads + 2
-    wasted = sum(e - s for s, e in attempts[:-1]) / 1e6
-    if pipe.restarts:
-        assert res.phases["restart_s"] > 0
-        assert res.phases["restart_s"] == pytest.approx(wasted, rel=0.5,
-                                                        abs=1e-3)
+    assert syncs == reads + redos + 1 + len(ranges["allpairs.download"]) \
+        == reads + redos + 2
+    if redos:
+        assert res.phases["redo_s"] > 0
+        assert res.phases["redo_s"] == pytest.approx(
+            sum(e - s for s, e in redo) / 1e6, rel=0.5, abs=1e-3)
     else:
-        assert res.phases["restart_s"] == 0.0
+        assert res.phases["redo_s"] == 0.0
 
 
 def test_mesh_sweep_spans_and_syncs():
@@ -197,3 +205,38 @@ def test_sketch_files_spans(tmp_path):
                                                      [files]), name
         assert len(ranges.get("sketch.pack_upload", [])) == packs
     clear_upload_cache()
+
+
+def test_benchmark_reads_the_resketch():
+    """The benchmark's readers of the re-sketch on what the pipeline books:
+    allpairs.sketch_redos is the counter's change a job (0 with no
+    overflow, where the counter never moved), allpairs.redo_s the mean
+    of phases["redo_s"]; both silent for jobs that book no redo_s (a
+    program without the re-sketch)."""
+    import types
+    from benchmark import harness
+
+    def read(name, records, counters):
+        return harness.load_metric(harness.BENCH, name)(
+            types.SimpleNamespace(records=records, counters=counters))
+
+    g, n = 6, 40_000
+    for cap in (256, 0):
+        sk = FracMinHashSketcher(SketchConfig(window=20, k=16, scale=20,
+                                              sketch_capacity=cap),
+                                 device="cpu")
+        before = observability.counters()
+        res = DevicePipeline(sk).all_pairs(codes_source(g, n, seed=4), g, n)
+        after = observability.counters()
+        counters = {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] != before.get(k, 0)}
+        records = [{"phases": dict(res.phases)}] * 2
+        assert read("allpairs.sketch_redos", records, counters) == \
+            counters.get(REDOS, 0) / 2
+        assert (read("allpairs.sketch_redos", records, counters) > 0) == \
+            (cap > 0)
+        assert read("allpairs.redo_s", records, counters) == \
+            res.phases["redo_s"]
+    old = [{"phases": {"restart_s": 0.5}}]
+    assert read("allpairs.sketch_redos", old, {}) is None
+    assert read("allpairs.redo_s", old, {}) is None
