@@ -20,7 +20,9 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      full and split, and on empty and all-sentinel streams;
      K10 (without and with the column block's gid offset) and K6 (split,
      its second timed shape) at the blocked schedule's macro-tile (two
-     presorted blocks of 128 x 32,768, gp 256);
+     presorted blocks of 128 x 32,768, gp 256); K6 also at macro-tiles of
+     two blocks of related genomes (the cell's Zipf species) and of
+     unrelated ones;
   3. write synthetic FASTAs from --seed (8 genomes of 4-6 Mnt with a few
      records and N-runs, genome 1 a 3%-mutated copy of genome 0) and run
      the CLI (`driver.main --window 20 --k 16 --device cuda`) on all 8, then
@@ -169,8 +171,11 @@ their device time from torch.profiler beside the CUDA-event time, which
 also holds the wrapper's host time (K8 and K9 at both their timed
 shapes; a device time or launch count is null where the profiler
 recorded no kernel event in three tries); K4 its device time by kernel,
-its grids and its time at kw 1-4; K7 its seed-batch launch; K6 at both
-its timed shapes, K3 with the grids the profiler recorded), a line of
+its grids and its time at kw 1-4; K7 its seed-batch launch; K6 at its
+four timed shapes (config 2, the 4-clade macro-tile, macro-tiles of
+related and of unrelated blocks like the all-pairs cell's), each with
+its kept runs, which the kernel's own count must equal, and its byte
+and tensor bounds, K3 with the grids the profiler recorded), a line of
 the profiled sums of K4, K7, K2, K5, K10, K6, K3 and K12 over phases 6, 7
 and 8(b) with the bytes of K2 and K3 on those paths and K4's launches by
 grid in 8(b), a line of phase 14's route and turns, and as the LAST line
@@ -1108,18 +1113,22 @@ def phase_seed_and_fallback_kernels(dev, rng, timer, ops, n=8388608,
     return res
 
 
-def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits):
+def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits, clade=None):
     """(g, cap, kw) int32 device sketches: genome i draws each key of its
-    clade's pool ((i // 32) % clades) with probability count / pool; pools
-    are strictly ascending (random steps), so every sketch is sorted and
-    unique, all-ones padded.  Words past the 62 random low bits are a slow
-    ramp and a per-clade constant, so 128-bit keys stay ascending too."""
+    clade's pool ((i // 32) % clades, or clade[i] when a tensor of clade
+    ids is given) with probability count / pool; pools are strictly
+    ascending (random steps), so every sketch is sorted and unique,
+    all-ones padded.  Words past the 62 random low bits are a slow ramp and
+    a per-clade constant, so 128-bit keys stay ascending too."""
     import torch
 
     from spaced_kmer_sketching_tpu_torch.ops import u64ops
     from spaced_kmer_sketching_tpu_torch.ops.gram import _guard_words
 
     kw = _guard_words(key_bits)
+    if clade is None:
+        clade = (torch.arange(g, device=dev) // 32) % clades
+    clades = int(clade.max()) + 1
     step = max(2, (1 << min(key_bits, 62)) // pool)
     low = torch.randint(1, step, (clades, pool), generator=gen, device=dev,
                         dtype=torch.int64).cumsum(1)
@@ -1133,8 +1142,23 @@ def clade_keys(gen, dev, g, cap, pool, count, clades, key_bits):
     pick = torch.rand((g, pool), generator=gen, device=dev) < count / pool
     idx = torch.where(pick, torch.arange(pool, device=dev), pool)
     idx = idx.sort(dim=1).values[:, :cap]
-    clade = (torch.arange(g, device=dev) // 32) % clades
+    if pool < cap:
+        idx = torch.cat([idx, torch.full((g, cap - pool), pool,
+                                         device=dev)], 1)
     return table[clade[:, None], idx]
+
+
+def zipf_clades(seed, g, collection=10240, species=1024, exponent=1.0):
+    """Clade ids (0, 1, ...) of g genomes drawn without replacement from a
+    collection of `collection` genomes in `species` species of Zipf sizes
+    (size ~ rank^-exponent, at least 1), in a shuffled order: the species
+    structure of the all-pairs cell (benchmark/configs/collection10k.json),
+    where two blocks of 128 genomes share some 20-30 species."""
+    w = np.arange(1, species + 1, dtype=np.float64) ** -exponent
+    sizes = np.maximum(1, np.floor(collection * w / w.sum())).astype(int)
+    drawn = np.random.default_rng(seed).permutation(
+        np.repeat(np.arange(species), sizes))[:g]
+    return np.unique(drawn, return_inverse=True)[1]
 
 
 def packed_runs(keys, key_bits, gidbits):
@@ -1168,8 +1192,10 @@ def phase_gram_kernels(dev, timer, seed):
     of 8,192, open across chunk edges), full and split, and on empty and
     all-sentinel streams; K10 and the split K6 at a blocked
     macro-tile (two presorted blocks of 128 x 32,768, gidbits 8, gp 256).
-    K6 is timed at config 2's shape and at the macro-tile.  Returns
-    per-kernel max_abs_err and times."""
+    K6 is timed at config 2's shape, at that macro-tile and at two more
+    like the all-pairs cell's (related blocks of Zipf species, unrelated
+    blocks), each with its kept runs, counted by the kernel too, and its
+    byte and tensor bounds.  Returns per-kernel max_abs_err and times."""
     import torch
 
     from spaced_kmer_sketching_tpu_torch.ops.cuda import gram_tiles, sort
@@ -1185,21 +1211,33 @@ def phase_gram_kernels(dev, timer, seed):
         print(f"{key} {what}: max_abs_err={e}")
 
     def k6_timing(what, args, split):
+        gram_tiles.take_kept_runs(dev)
         got = gram_tiles.gram_tile_scan(*args, split=split)
+        hold("K6", got, gram_tiles.gram_tile_scan_plain(*args, split=split),
+             f"timed shape {what}")
         kept = k6_kept_runs(*args, split=split)
-        r = dict(shape=what, kept_runs=kept,
+        counted = gram_tiles.take_kept_runs(dev)
+        need(counted == kept, f"K6 at {what} counted {counted} kept runs, "
+             f"the plain count is {kept}")
+        sw = args[0]
+        valid = int((sw.reshape(sw.shape[0], -1)[-1] >= 0).sum())
+        ops = 2.0 * 128 * 128 * kept
+        r = dict(shape=what, kept_runs=kept, valid_entries=valid,
                  device_ms=device_ms(lambda: gram_tiles.gram_tile_scan(
                      *args, split=split), 10),
                  ms=timer(lambda: gram_tiles.gram_tile_scan(*args,
                                                             split=split), 10),
                  plain_ms=timer(lambda: gram_tiles.gram_tile_scan_plain(
                      *args, split=split), 3),
-                 **bound(nbytes(args[0], got),
-                         int8_ops=2.0 * 128 * 128 * kept))
+                 bytes_bound_ms=(valid * sw.shape[0] * 4 + nbytes(got))
+                 / HBM_BYTES_PER_S * 1e3,
+                 tensor_bound_ms=ops / INT8_OPS_PER_S * 1e3,
+                 **bound(nbytes(sw, got), int8_ops=ops))
         print(f"K6 timing at {what}: kernel {r['ms']} ms (device "
-              f"{r['device_ms']} ms), plain "
-              f"{r['plain_ms']} ms, {kept} kept runs, bound "
-              f"{r['bound_ms']} ms ({r['bound_by']})")
+              f"{r['device_ms']} ms), plain {r['plain_ms']} ms, {kept} kept "
+              f"runs, {valid} valid entries, byte bound "
+              f"{r['bytes_bound_ms']:.5f} ms, tensor bound "
+              f"{r['tensor_bound_ms']:.5f} ms")
         return r
 
     cases = [  # (what, genomes, cap, pool, count, key_bits, every, timed)
@@ -1299,6 +1337,24 @@ def phase_gram_kernels(dev, timer, seed):
     shapes.append(k6_timing(f"macro-tile: split {block} of gp {2 * block}, "
                             f"2 x {block} x {cap}", (merged, gidbits,
                                                      2 * block), block))
+    del merged, keys, pa, pb
+    # macro-tiles as the all-pairs cell's: two blocks of 128 related
+    # genomes whose species follow its Zipf law (two blocks share ~20-30
+    # species, hundreds of kept runs a chunk), and two blocks of unrelated
+    # genomes (each its own clade: no kept run); ~24,400 keys a genome
+    for what, clade, pool in (
+            ("related (Zipf species)", zipf_clades(seed, 2 * block), 30000),
+            ("unrelated (a clade a genome)", np.arange(2 * block), 25000)):
+        keys = clade_keys(gen, dev, 2 * block, cap, pool, 24400, 0, kb,
+                          clade=torch.from_numpy(clade).to(dev))
+        pa, pb = (sort.merge_sorted_runs(packed_runs(k, kb, gidbits),
+                                         cap // 128)
+                  for k in (keys[:block], keys[block:]))
+        merged = sort.merge_pair_streams(pa, pb, b_gid_offset=block)
+        shapes.append(k6_timing(
+            f"macro-tile, {what}: split {block} of gp {2 * block}, 2 x "
+            f"{block} x {cap}", (merged, gidbits, 2 * block), block))
+        del keys, pa, pb, merged
     res["K6"].update({k: shapes[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "device_ms")},
                      timed_shapes=shapes)

@@ -198,7 +198,7 @@ def _declare(lib) -> None:
     lib.sks_merge_pair.restype = i
     lib.sks_merge_pair.argtypes = [p, p, p, i, i64, i, p]
     lib.sks_gram_tiles.restype = i
-    lib.sks_gram_tiles.argtypes = [p, i, i64, i, i, i, i64, p, p]
+    lib.sks_gram_tiles.argtypes = [p, i, i64, i, i, i, i64, p, p, p]
     lib.sks_sort_runs_scratch.restype = i64
     lib.sks_sort_runs_scratch.argtypes = [i, i, i64, i64]
     lib.sks_sort_runs.restype = i

@@ -6,15 +6,17 @@ ops/gram._gram_chunks_packed: entry (a, b) of the result counts the keys
 shared by genomes a and b, the diagonal holds the sketch sizes.  The JAX
 functions return float32 (exact, counts < 2^24); the port returns int32.
 The kernel takes the sum over runs of the 0/1 run multi-hots' products on
-the int8 tensor cores, for any gp the 16-bit gid field of its chunk
-entries holds (gp <= 65,536).  It sizes its own segments of the stream:
-whole 4,096-entry chunks less 64 entries each, for about 264 blocks over
-all 128 x 128 output tiles, two resident on each of the H100's 132 SMs
-(csrc/gram_tiles.cu says why).
+the int8 tensor cores (wgmma), for any gp the 16-bit gid field of its
+chunk entries holds (gp <= 65,536).  It sizes its own segments of the
+stream's valid entries: whole 4,096-entry chunks less 64 entries each,
+for about 264 blocks over all 128 x 128 output tiles, two resident on
+each of the H100's 132 SMs (csrc/gram_tiles.cu says why).  Every launch adds the runs it multiplied
+(kept runs, summed over the output tiles) to an int64 counter on the
+device, which `take_kept_runs` reads.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -22,6 +24,7 @@ from . import build
 
 LANES = 128
 K6 = build.KERNELS["K6"]
+_kept: Dict[torch.device, torch.Tensor] = {}   # per device, since the take
 
 
 def _shape(sw: torch.Tensor, gidbits: int, gp: int, split: Optional[int]):
@@ -58,9 +61,46 @@ def gram_tile_scan(sw: torch.Tensor, gidbits: int, gp: int, *,
     if n == 0:
         return out
     build.launch("sks_gram_tiles", dev, flat.data_ptr(), pw, n, gidbits, gp,
-                 split or 0, 0, out.data_ptr())
+                 split or 0, 0, out.data_ptr(), _kept_counter(dev).data_ptr())
     K6.launches += 1
     return out
+
+
+def _device(dev) -> torch.device:
+    """`dev` with its index (a CUDA device without one is the current)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _kept_counter(dev: torch.device) -> torch.Tensor:
+    t = _kept.get(dev)
+    if t is None:
+        t = _kept[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return t
+
+
+def reset_kept_runs(dev) -> None:
+    """Zero `dev`'s kept-run counter (enqueued on its stream; no sync)."""
+    t = _kept.get(_device(dev))
+    if t is not None:
+        t.zero_()
+
+
+def take_kept_runs(dev) -> int:
+    """Runs that K6 launches on `dev` multiplied since the last take or
+    reset: for each launch, the runs of the stream with an entry in an
+    output tile's row range and one in its column range (two in range on
+    a diagonal tile of full mode), summed over its tiles; each cost 2 x
+    128 x 128 int8 tensor operations.  Reading it waits for the device.
+    The plain version counts none."""
+    t = _kept.get(_device(dev))
+    if t is None:
+        return 0
+    n = int(t.item())
+    t.zero_()
+    return n
 
 
 def gram_tile_scan_plain(sw: torch.Tensor, gidbits: int, gp: int, *,

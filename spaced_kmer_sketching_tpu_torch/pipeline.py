@@ -47,8 +47,9 @@ aten op the host was in, inside pipeline.attempt.  restart_s (and the
 pipeline's `restarts`) read 0: they booked the whole-run restart this
 re-sketch replaced.  The counter pipeline_host_syncs counts the host's
 blocking reads: a block's counts, a re-sketch's counts, the assembled
-cache's synchronize (on a GPU), a sampled genome's keys, the matrix;
-pipeline_sketch_redos counts the re-sketch dispatches.
+cache's synchronize (on a GPU), a sampled genome's keys, the matrix, and
+(on a GPU) K6's count of the runs it multiplied, which gram_kept_runs
+books; pipeline_sketch_redos counts the re-sketch dispatches.
 
 Given a mesh of one process (JAX pipeline.py:418-725; `MeshDevicePipeline`
 is the JAX name for it) the same flow runs over its slots: each dispatch
@@ -76,6 +77,7 @@ import torch
 from .ingest.fasta import PackedSeqs, read_fasta
 from .models.fracminhash import FracMinHashSketcher, Sketch
 from .observability import count, get_logger, span
+from .ops.cuda import gram_tiles
 from .ops.cuda.extract import pack2bit, packed_body
 from .ops.gram import _guard_words, pack_plan, presort_block_packed
 from .parallel.allpairs import BLOCK, GIDBITS, mesh_tile_sweep
@@ -492,9 +494,15 @@ class DevicePipeline:
             count("pipeline_host_syncs")
             bytes_d2h += c * 16
 
+        gpus = [c.device for c in caches.values() if c.device.type == "cuda"]
+        for d in gpus:
+            gram_tiles.reset_kept_runs(d)
         with span("allpairs.sweep", log) as sweep:
             out = mesh_tile_sweep(self.mesh, caches, g)
         count("pipeline_host_syncs")             # the matrix's download
+        for d in gpus:                           # K6's kept runs
+            count("gram_kept_runs", gram_tiles.take_kept_runs(d))
+            count("pipeline_host_syncs")
         phases["allpairs_s"] = sweep.seconds
         bytes_d2h += g * g * 4
 

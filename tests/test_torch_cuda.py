@@ -267,7 +267,9 @@ def test_k5_k6_match_plain(dev, g, cap, key_bits, every):
 def test_k6_any_segment_matches_plain(dev, seg):
     """K6's C entry at its own sizing (0) and at segment lengths it never
     picks: a block a run start, segments that cut runs and chunks
-    anywhere, one block."""
+    anywhere, one block; the kept runs it counts are the plain count's,
+    and a null counter is allowed."""
+    from chip_smoke import k6_kept_runs
     g, cap, gidbits = 256, 256, 8
     merged = sort.merge_sorted_runs_plain(
         packed_runs(dev, g, cap, 40, gidbits, 600, 120, seg, every=1),
@@ -277,12 +279,17 @@ def test_k6_any_segment_matches_plain(dev, seg):
     for split in (None, 128):
         want = gram_tiles.gram_tile_scan_plain(merged, gidbits, 256,
                                                split=split)
-        out = torch.zeros_like(want)
-        err = build.lib().sks_gram_tiles(
-            flat.data_ptr(), pw, flat.shape[1], gidbits, 256, split or 0,
-            seg, out.data_ptr(), build.stream_ptr(dev))
-        torch.cuda.synchronize()
-        assert err == 0 and torch.equal(out, want)
+        for counted in (True, False):
+            out = torch.zeros_like(want)
+            kept = torch.zeros(1, dtype=torch.int64, device=dev)
+            err = build.lib().sks_gram_tiles(
+                flat.data_ptr(), pw, flat.shape[1], gidbits, 256,
+                split or 0, seg, out.data_ptr(),
+                kept.data_ptr() if counted else None, build.stream_ptr(dev))
+            torch.cuda.synchronize()
+            assert err == 0 and torch.equal(out, want)
+            assert int(kept) == (k6_kept_runs(flat, gidbits, 256, split)
+                                 if counted else 0)
 
 
 @pytest.mark.parametrize("pw", [1, 5])
@@ -294,15 +301,110 @@ def test_k6_empty_and_sentinel_streams(dev, pw):
     sent = torch.full((pw, 40, 128), -1, dtype=torch.int32, device=dev)
     for split in (None, 128):
         build.reset_launches()
+        gram_tiles.take_kept_runs(dev)
         got = gram_tiles.gram_tile_scan(sent, 8, 256, split=split)
         torch.cuda.synchronize()
         assert build.KERNELS["K6"].launches == 1
+        assert gram_tiles.take_kept_runs(dev) == 0
         assert got.shape == (256 if split is None else 128,
                              256 - (split or 0))
         assert int(got.abs().sum()) == 0
     got = gram_tiles.gram_tile_scan(sent, 12, 4096)
     torch.cuda.synchronize()
     assert got.shape == (4096, 4096) and int(got.abs().sum()) == 0
+
+
+def run_stream(dev, runs, key_bits, gidbits):
+    """A sorted packed stream whose run i holds the gids runs[i] (one
+    key each, ascending), as K6 reads it."""
+    kw = gram._guard_words(key_bits)
+    key = np.concatenate([np.full(len(r), i + 1) for i, r in enumerate(runs)])
+    gid = np.concatenate([np.sort(np.asarray(r)) for r in runs])
+    keys = torch.zeros((1, key.size, kw), dtype=torch.int32)
+    keys[0, :, 0] = torch.from_numpy(key.astype(np.int32))
+    planes = gram._pack_gid_planes(
+        keys.to(dev), torch.from_numpy(gid)[None].to(dev), key_bits, gidbits,
+        gram.pack_plan(key_bits, gidbits))
+    return planes.reshape(planes.shape[0], -1)
+
+
+def k6_counted(dev, sw, gidbits, gp, split, seg):
+    """K6's C entry at segment length seg (0: its own sizing) with a kept
+    run counter: (the Gram, the kept runs it counted)."""
+    flat = sw.reshape(sw.shape[0], -1)
+    out = torch.zeros((split or gp, gp - (split or 0)), dtype=torch.int32,
+                      device=dev)
+    kept = torch.zeros(1, dtype=torch.int64, device=dev)
+    err = build.lib().sks_gram_tiles(
+        flat.data_ptr(), flat.shape[0], flat.shape[1], gidbits, gp,
+        split or 0, seg, out.data_ptr(), kept.data_ptr(),
+        build.stream_ptr(dev))
+    torch.cuda.synchronize()
+    assert err == 0
+    return out, int(kept)
+
+
+@pytest.mark.parametrize("key_bits", [16, 40, 60, 90, 128])   # pw 1-5
+@pytest.mark.parametrize("size", [64, 32, 48, 80, 6])
+def test_k6_kept_run_batches(dev, size, key_bits):
+    """Runs of `size` entries, half row and half column gids, so each is
+    kept: at 4,096-entry segments a chunk holds exactly one batch of 64
+    kept runs (size 64) or exactly 128 (size 32); runs of 48 and 80 cross
+    batch and chunk edges and stay open into the next chunk; runs of 6
+    between dropped row-only runs give ~500 kept runs a chunk.  Full and
+    split mode, own sizing and segments that cut runs anywhere: equal to
+    the plain version, and the kept runs counted are the plain count."""
+    from chip_smoke import k6_kept_runs
+    rng = np.random.default_rng(size * 1000 + key_bits)
+    runs, both = [], 3 * 4096 // size + 5
+    for i in range(both):
+        half = size // 2
+        runs.append(np.concatenate([
+            rng.choice(128, half, replace=False),
+            128 + rng.choice(128, size - half, replace=False)]))
+        if size == 6 and i % 3 == 0:
+            runs.append(rng.choice(128, 4, replace=False))
+    sw = run_stream(dev, runs, key_bits, 8)
+    for split in (128, None):
+        want = gram_tiles.gram_tile_scan_plain(sw, 8, 256, split=split)
+        want_kept = k6_kept_runs(sw, 8, 256, split)
+        assert split is None or want_kept == both
+        for seg in (0, 4096, 333, 4097):
+            got, kept = k6_counted(dev, sw, 8, 256, split, seg)
+            assert torch.equal(got, want) and kept == want_kept
+
+
+@pytest.mark.parametrize("key_bits", [16, 40, 60, 90, 128])   # pw 1-5
+def test_k6_related_macro_tiles(dev, key_bits):
+    """Macro-tiles built like the all-pairs cell's: two presorted blocks of
+    128 genomes whose species follow a Zipf law (~20-30 species shared, so
+    hundreds of kept runs a chunk), merged by K10 with the column gids +
+    128, and one block merged with itself (a diagonal macro-tile); split
+    K6 through the wrapper equals the plain version, and the wrapper's
+    counter (gram_kept_runs' source) the plain count of kept runs."""
+    from chip_smoke import clade_keys, k6_kept_runs, packed_runs, zipf_clades
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(key_bits)
+    cap, gidbits = 2048, 8
+    clade = torch.from_numpy(zipf_clades(key_bits, 256)).to(dev)
+    keys = clade_keys(gen, dev, 256, cap, 2000, 1700, 0, key_bits,
+                      clade=clade)
+    pa = sort.merge_sorted_runs(packed_runs(keys[:128], key_bits, gidbits),
+                                cap // 128)
+    pb = sort.merge_sorted_runs(packed_runs(keys[128:], key_bits, gidbits),
+                                cap // 128)
+    for a, b in ((pa, pb), (pa, pa)):
+        merged = sort.merge_pair_streams(a, b, b_gid_offset=128)
+        want = gram_tiles.gram_tile_scan_plain(merged, gidbits, 256,
+                                               split=128)
+        want_kept = k6_kept_runs(merged, gidbits, 256, 128)
+        assert want_kept > 2000
+        gram_tiles.take_kept_runs(dev)
+        build.reset_launches()
+        got = gram_tiles.gram_tile_scan(merged, gidbits, 256, split=128)
+        assert gram_tiles.take_kept_runs(dev) == want_kept
+        assert build.KERNELS["K6"].launches == 1
+        assert torch.equal(got, want)
 
 
 @settings(max_examples=40, deadline=None,
@@ -781,7 +883,8 @@ def test_pipeline_on_the_gpu_matches_native(dev, tmp_path):
 def test_pipeline_host_syncs_on_the_gpu(dev):
     """pipeline_host_syncs on the card: a block read each, a re-sketch's
     read each (none unless a genome overflows), the assembled cache's
-    synchronize, one sampled genome's keys and the download, in one
+    synchronize, one sampled genome's keys, the download and K6's count
+    of the runs it multiplied (gram_kept_runs, booked once a job), in one
     attempt (no whole-run restart); the per-dispatch spans open no range
     under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -807,7 +910,8 @@ def test_pipeline_host_syncs_on_the_gpu(dev):
     assert names.count("pipeline.assemble") == 1
     assert "pipeline.dispatch" not in names
     assert ("pipeline.redo" in names) == (redos > 0)
-    assert syncs == reads + redos + 3
+    assert syncs == reads + redos + 4
+    assert after.get("gram_kept_runs", 0) > before.get("gram_kept_runs", 0)
     assert out.phases["restart_s"] == 0.0
     assert (out.phases["redo_s"] > 0) == (redos > 0)
 

@@ -7,9 +7,11 @@ decomposition in numpy, at sizes small enough that every edge is crossed:
 K6's segments owning the runs that start in them, back-to-back chunks
 whose last run stays open into the next (runs longer than a chunk), the
 reads past a segment that only finish its open run, chunks of
-single-entry runs cut short, the keep filter, the K-major multi-hots
-taken a batch of columns at a time and an exact integer A B^T, the
-diagonal as a count; K3's tile counts, their offsets scanned in rounds,
+single-entry runs cut short, the keep filter, the kept runs numbered by
+an entry scan of their first entries, each batch of columns written from
+its own contiguous range of entries into K-major multi-hots and an exact
+integer A B^T, the diagonal as a count, segments sized over the valid
+entries that two rounds of probes find; K3's tile counts, their offsets scanned in rounds,
 the ranked scatter of each tile and the sentinel tail.  The models live here, not in the package: they are
 what the kernels compute, written once more.  Every value is an integer,
 so every comparison is exact (tolerance 0).
@@ -63,8 +65,29 @@ def packed_stream(rng, g, key_bits, gidbits, *, universe, per, every=0,
     return np.array(words, np.uint64).T.astype(np.uint32), sets
 
 
-def k6_model(sw, gidbits, gp, split=None, *, seg, chunk, kb):
-    """K6's decomposition (csrc/gram_tiles.cu) over a (pw, n) stream."""
+def own_segment(valid, blocks, chunk, slack=64, threads=256):
+    """K6's own segment length for a grid `blocks` wide: two rounds of a
+    probe a thread bound the first sentinel (valid entries are a prefix)
+    from above, and whole chunks less `slack` entries cover that many
+    entries over the blocks.  Returns (segment, the bound)."""
+    n = valid.size
+    lo, hi = 0, n
+    for _ in range(2):
+        if lo >= hi:
+            break
+        step = -(-(hi - lo) // threads)
+        k = sum(1 for t in range(threads)
+                if lo + t * step < hi and valid[lo + t * step])
+        hi, lo = ((min(hi, lo + k * step), lo + (k - 1) * step + 1) if k
+                  else (lo, lo))
+    per = chunk - slack
+    return (-(-hi // (per * blocks)) if hi > 0 else 1) * per, hi
+
+
+def k6_model(sw, gidbits, gp, split=None, *, seg, chunk, kb, blocks=0):
+    """K6's decomposition (csrc/gram_tiles.cu) over a (pw, n) stream;
+    seg 0 sizes the segments as the kernel does for a grid `blocks`
+    wide."""
     pw, n = sw.shape
     gmask = (1 << gidbits) - 1
     valid = (sw[pw - 1] >> 31) == 0
@@ -76,6 +99,9 @@ def k6_model(sw, gidbits, gp, split=None, *, seg, chunk, kb):
     sym = split is None
     rows, c0 = (gp, 0) if sym else (split, split)
     out = np.zeros((rows, gp - c0), np.int64)
+    if seg == 0:
+        seg, _ = own_segment(valid, blocks, chunk)
+        assert seg * blocks >= valid.sum()
     for tr in range(rows // GT):
         for tc in range((gp - c0) // GT):
             if sym and tr > tc:
@@ -145,20 +171,34 @@ def k6_segment(valid, start, gid, s0, s1, r0, cg0, diag, chunk, kb, gp):
                     open_out[1, g[e] - cg0] = True
         keep = has_r & (has_c | diag)
         keep[done:] = False
-        kcol = np.where(keep, np.cumsum(keep) - 1, -1)
-        for k0 in range(0, int(keep.sum()), kb):
+        # columns: an entry scan of the kept runs' first entries (the run
+        # carried in, if kept, is column 0); each batch's kept runs are the
+        # entries from its first column's first entry to the next batch's
+        kept0 = bool(nopen and keep[0])
+        k = np.zeros(ln, bool)
+        k[use] = keep[r[use]]
+        first = k & st
+        col = np.cumsum(first) - 1 + kept0
+        batches = -(-(int(first.sum()) + kept0) // kb)
+        bstart = [0] * batches + [ln]
+        for e in np.flatnonzero(k & (st | (np.arange(ln) == 0))):
+            if col[e] % kb == 0:
+                bstart[col[e] // kb] = e
+        for bi in range(batches):
             a = np.zeros((GT, kb), np.int8)
             b = np.zeros((GT, kb), np.int8)
-            for e in np.flatnonzero(use):
-                c = kcol[r[e]] - k0
-                if 0 <= c < kb:
-                    if in_r[e]:
-                        a[g[e] - r0, c] = 1
-                    if in_c[e]:
-                        b[g[e] - cg0, c] = 1
-            if nopen and 0 <= kcol[0] - k0 < kb:   # the run carried in
-                a[open_in[0], kcol[0] - k0] = 1
-                b[open_in[1], kcol[0] - k0] = 1
+            for e in range(bstart[bi], bstart[bi + 1]):
+                if not k[e]:
+                    continue
+                c = col[e] - bi * kb
+                assert 0 <= c < kb                 # one batch's range
+                if in_r[e]:
+                    a[g[e] - r0, c] = 1
+                if in_c[e]:
+                    b[g[e] - cg0, c] = 1
+            if kept0 and bi == 0:                  # the run carried in
+                a[open_in[0], 0] = 1
+                b[open_in[1], 0] = 1
             acc += a.astype(np.int32) @ (a if diag else b).astype(np.int32).T
         if carry:
             carry_in = (has_r[last], has_c[last])
@@ -292,6 +332,73 @@ def test_k6_model_runs_longer_than_chunks(chunk, seg):
     np.testing.assert_array_equal(rect, want[:256, 256:])
     np.testing.assert_array_equal(
         k6_model(sw, gidbits, gp, 256, seg=seg, chunk=chunk, kb=64), rect)
+
+
+@pytest.mark.parametrize("g,pad,blocks", [
+    (200, 64, 264), (200, 30000, 264), (256, 9000, 5), (100, 0, 2)])
+def test_k6_model_own_segments(g, pad, blocks):
+    """Segments sized by the kernel (seg 0) over the valid entries that two
+    rounds of probes bound from above, whatever sentinel tail the stream
+    has: the bound is within n / 2^16 of the valid count, the segments
+    cover every valid entry, and full and split mode equal brute force."""
+    rng = np.random.default_rng(g + pad)
+    gidbits, gp = 8, 256
+    sw, sets = packed_stream(rng, g, 40, gidbits, universe=60, per=20,
+                             every=1, pad=pad)
+    valid = (sw[-1] >> 31) == 0
+    nv, n = int(valid.sum()), sw.shape[1]
+    for chunk in (512, 4096):
+        seg, hi = own_segment(valid, blocks, chunk)
+        assert nv <= hi <= nv + n // 256 ** 2 + 1
+        assert seg % (chunk - 64) == 0 and seg * blocks >= nv
+    want = brute(sets, gp)
+    np.testing.assert_array_equal(
+        k6_model(sw, gidbits, gp, seg=0, chunk=512, kb=64, blocks=blocks),
+        want)
+    np.testing.assert_array_equal(
+        k6_model(sw, gidbits, gp, GT, seg=0, chunk=256, kb=32,
+                 blocks=blocks), want[:GT, GT:])
+
+
+def brute_kept_runs(sets, gp, split=None):
+    """Runs (keys) that can add to a 128 x 128 output tile, summed over the
+    tiles: a genome of the key in the tile's row range and one in its
+    column range, or two in range on a diagonal tile of full mode."""
+    holders = {}
+    for gid, keys in enumerate(sets):
+        for key in keys:
+            holders.setdefault(key, []).append(gid)
+    rows, c0 = (gp, 0) if split is None else (split, split)
+    kept = 0
+    for gids in holders.values():
+        tiles = np.bincount(np.asarray(gids) // GT, minlength=gp // GT)
+        for tr in range(rows // GT):
+            for tc in range(c0 // GT, gp // GT):
+                if split is None and tr > tc:
+                    continue
+                if split is None and tr == tc:
+                    kept += tiles[tr] >= 2
+                else:
+                    kept += tiles[tr] > 0 and tiles[tc] > 0
+    return int(kept)
+
+
+@pytest.mark.parametrize("seed,g,key_bits,gidbits,universe,per,every,gp",
+                         K6_CASES)
+def test_k6_kept_runs_count(seed, g, key_bits, gidbits, universe, per, every,
+                            gp):
+    """chip_smoke.py's count of the runs K6 keeps (which K6's own counter,
+    gram_kept_runs, is held to on the card) equals a brute-force count
+    from the genomes' key sets, in full mode and split mode."""
+    from chip_smoke import k6_kept_runs
+    rng = np.random.default_rng(seed)
+    sw, sets = packed_stream(rng, g, key_bits, gidbits, universe=universe,
+                             per=per, every=every)
+    t = i32(sw)
+    assert k6_kept_runs(t, gidbits, gp) == brute_kept_runs(sets, gp)
+    if gp > GT:
+        assert k6_kept_runs(t, gidbits, gp, GT) == brute_kept_runs(
+            sets, gp, GT)
 
 
 # --- K3 ---------------------------------------------------------------------
