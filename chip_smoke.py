@@ -27,11 +27,10 @@ CUDA GPU is usable or the port's package is not beside it.  Phases:
      records and N-runs, genome 1 a 3%-mutated copy of genome 0) and run
      the CLI (`driver.main --window 20 --k 16 --device cuda`) on all 8, then
      on genomes 0 and 1 alone (BASELINE config 1, twice: cold and warm);
-  4. run the CLI's 62-config reference sweep on genomes 0 and 1 in four
-     turns, the per-genome upload cache on, off, off, on: every turn
-     writes the first turn's CSV bytes, an on turn uploads no genome in
-     configs 2-62, and each cached entry equals a fresh pack of its
-     genome on the card;
+  4. run the CLI's 62-config reference sweep on genomes 0 and 1 in two
+     turns: every turn writes the first turn's CSV bytes, and the batch
+     step's upload of each of phase 3's genomes equals a fresh pack, its
+     run-id plane expanded on the card the host's;
   5. BASELINE config 2: 100 related FASTAs of 4-6 Mnt (one ancestor, 5
      clade roots 3% substituted from it, 20 members per clade 0.2-2%
      substituted from their root) through the same CLI; all-pairs takes
@@ -1444,32 +1443,6 @@ def record_sketches():
     return captured
 
 
-UPLOAD_COUNTERS = ("hits", "misses", "h2d_bytes")
-
-
-def record_uploads():
-    """Capture the upload cache's counters (observability's
-    upload_cache_*) over each sketch_files call of the CLI's sketchers:
-    one dict of hits, misses and uploaded bytes an experiment."""
-    from spaced_kmer_sketching_tpu_torch.models.fracminhash import (
-        FracMinHashSketcher)
-    from spaced_kmer_sketching_tpu_torch.observability import counters
-    captured = []
-    orig = FracMinHashSketcher.sketch_files
-
-    def now():
-        c = counters()
-        return {k: c.get(f"upload_cache_{k}", 0) for k in UPLOAD_COUNTERS}
-
-    def recording(self, paths, *a, **kw):
-        before = now()
-        out = orig(self, paths, *a, **kw)
-        captured.append({k: v - before[k] for k, v in now().items()})
-        return out
-    FracMinHashSketcher.sketch_files = recording
-    return captured
-
-
 def run_cli(argv):
     """driver.main on argv; returns (stdout lines, sketching ms, comparison
     ms) with the timings summed over the run's experiments."""
@@ -1590,86 +1563,56 @@ def run_main_path(paths, tmp: pathlib.Path, device: str, pool) -> dict:
     print(f"checks: {len(captured)} experiments equal the native scalar "
           f"pipeline and the host ANI math (kw buckets {sorted(buckets)}) in "
           f"{time.perf_counter() - t0:.3f} s; ANI(genome0, genome1) = {ani01}")
-    sweep4["host_ms"] = check_upload_cache(paths, parsed, paths[:2])
+    sweep4["host_ms"] = check_uploads(paths, parsed, paths[:2])
     return {"launches": launches, "config1_warm": cfg1[1], "sweep": sweep4}
 
 
 def run_sweep_turns(paths, out: pathlib.Path, device: str) -> dict:
-    """Phase 4: the CLI's 62-config sweep on `paths` in turns with the
-    upload cache on, off, off, on (fracminhash.UPLOAD_CACHE_BYTES set to 0
-    for the off turns).  Every turn must write the first turn's CSV bytes;
-    an on turn must upload no genome in configs 2-62, an off turn every
-    genome in every config.  Returns each turn's numbers and the kernels'
-    launches over the first turn (the main path's sweep)."""
-    from spaced_kmer_sketching_tpu_torch.models import fracminhash as fm
-
-    budget = fm.UPLOAD_CACHE_BYTES
-    need(budget > 0, "the upload cache is disabled by default")
-    uploads = record_uploads()
+    """Phase 4: the CLI's 62-config sweep on `paths` in two turns.  Every
+    turn must write the first turn's CSV bytes.  Returns each turn's
+    numbers and the kernels' launches over the first turn (the main
+    path's sweep)."""
     turns, launches = [], None
-    try:
-        for t, on in enumerate((True, False, False, True)):
-            fm.UPLOAD_CACHE_BYTES = budget if on else 0
-            csv = out if t == 0 else out.with_name(f"sweep_turn{t}.csv")
-            uploads.clear()
-            t0 = time.perf_counter()
-            _, s_ms, c_ms = run_cli([str(csv), *paths, "--device", device])
-            wall = time.perf_counter() - t0
-            if t == 0:
-                launches = launch_counts()
-            need(len(uploads) == 62, f"phase 4: {len(uploads)} experiments")
-            need(csv.read_bytes() == out.read_bytes(),
-                 f"phase 4: turn {t}'s CSV != the first turn's")
-            later = add_launches(*uploads[1:])
-            if on:
-                need(later["misses"] == later["h2d_bytes"] == 0,
-                     f"phase 4: configs 2-62 uploaded genomes with the "
-                     f"cache on: {json.dumps(later)}")
-            else:
-                need(all(u["misses"] == len(paths) and u["hits"] == 0
-                         for u in uploads),
-                     "phase 4: a config skipped an upload with the cache off")
-            total = add_launches(*uploads)
-            turns.append({"cache": "on" if on else "off", "wall_s": wall,
-                          "sketching_ms": s_ms, "comparison_ms": c_ms,
-                          "sketching_ms_per_config": s_ms / 62, **total,
-                          "configs_2_62_misses": later["misses"]})
-            print(f"phase 4: 62-config sweep on {len(paths)} genomes, upload "
-                  f"cache {turns[-1]['cache']}: {wall:.3f} s wall, sketching "
-                  f"{s_ms} ms ({s_ms / 62} ms a config), comparison {c_ms} "
-                  f"ms; cache hits {total['hits']}, misses "
-                  f"{total['misses']} (configs 2-62: {later['misses']}), "
-                  f"uploaded {total['h2d_bytes']} bytes")
-    finally:
-        fm.UPLOAD_CACHE_BYTES = budget
+    for t in range(2):
+        csv = out if t == 0 else out.with_name(f"sweep_turn{t}.csv")
+        t0 = time.perf_counter()
+        _, s_ms, c_ms = run_cli([str(csv), *paths, "--device", device])
+        wall = time.perf_counter() - t0
+        if t == 0:
+            launches = launch_counts()
+        need(csv.read_bytes() == out.read_bytes(),
+             f"phase 4: turn {t}'s CSV != the first turn's")
+        turns.append({"wall_s": wall, "sketching_ms": s_ms,
+                      "comparison_ms": c_ms,
+                      "sketching_ms_per_config": s_ms / 62})
+        print(f"phase 4: 62-config sweep on {len(paths)} genomes, turn {t}: "
+              f"{wall:.3f} s wall, sketching {s_ms} ms ({s_ms / 62} ms a "
+              f"config), comparison {c_ms} ms")
     return {"launches": launches, "turns": turns}
 
 
-def check_upload_cache(paths, parsed, sweep_paths) -> dict:
-    """Every entry of the upload cache is a genome of `paths` (phase 3's
-    genomes, parsed in `parsed`) packed afresh on the card: its 2-bit
-    words and run ends, and the run-id plane the step reads expanded from
-    them equal to the host plane (a loop over the runs).  Returns the host
-    ms of a sweep config's digests of `sweep_paths` and of their packs."""
+def check_uploads(paths, parsed, sweep_paths) -> dict:
+    """The batch step's upload of each genome of `paths` (phase 3's
+    genomes, parsed in `parsed`) at the sweep's bucket on the card: its
+    2-bit words and run ends equal to a fresh pack, and the run-id plane
+    the step reads expanded from them equal to the host plane (a loop over
+    the runs).  Returns the host ms of a sweep config's packs and uploads
+    of `sweep_paths`."""
     import torch
     from spaced_kmer_sketching_tpu_torch.models import fracminhash as fm
     from spaced_kmer_sketching_tpu_torch.ops.cuda.extract import pack2bit
 
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    entries = dict(fm._UPLOAD_CACHE)
-    genomes, pks = {}, [parsed[p] for p in paths]
-    for n, dev in {k[:2] for k in entries}:
-        genomes.update(zip(fm.upload_cache_keys(pks, n, dev), pks))
-    need(len(entries) == len(paths) and entries.keys() <= genomes.keys(),
-         f"the upload cache holds {len(entries)} entries, not one for each "
-         f"of {len(paths)} genomes")
-    for key, entry in entries.items():
-        n, dev, pk = key[0], key[1], genomes[key]
+    for p in paths:
+        pk = parsed[p]
+        n = fm._bucket_size(pk.codes.size + 20)
+        (entry,) = fm.upload_genomes([pk], n, dev)
         words = pack2bit(pk.codes, n // 16).view(np.int32)
         ends = np.cumsum(pk.run_lens).astype(np.int32)
         need(torch.equal(entry.words, torch.from_numpy(words).to(dev))
              and torch.equal(entry.ends, torch.from_numpy(ends).to(dev)),
-             "an upload cache entry != a fresh pack of its genome")
+             f"{p}: the batch step's upload != a fresh pack of its genome")
         rid = np.full(n, -1, np.int32)
         pos = 0
         for r, ln in enumerate(pk.run_lens):
@@ -1677,28 +1620,20 @@ def check_upload_cache(paths, parsed, sweep_paths) -> dict:
             pos += int(ln)
         need(np.array_equal(
             fm._stack_uploads([entry], n)[1][0].cpu().numpy(), rid),
-            "the run-id plane expanded on the card != the host plane")
-    print(f"checks: the upload cache's {len(entries)} entries equal fresh "
-          f"packs of their genomes, and their run-id planes the host's, in "
+            f"{p}: the run-id plane expanded on the card != the host plane")
+    print(f"checks: the batch step's uploads of {len(paths)} genomes equal "
+          f"fresh packs, and their run-id planes the host's, in "
           f"{time.perf_counter() - t0:.3f} s")
-    n, dev = next(iter(entries))[:2]
     sweep = [parsed[p] for p in sweep_paths]
-    ms, threads = {}, fm._DIGEST_THREADS
-    for what, fn in (("digest", lambda: fm.upload_cache_keys(sweep, n, dev)),
-                     ("digest_1_thread",
-                      lambda: fm.upload_cache_keys(sweep, n, dev)),
-                     ("pack", lambda: [pack2bit(pk.codes, n // 16)
-                                       for pk in sweep])):
-        fm._DIGEST_THREADS = 1 if what == "digest_1_thread" else threads
-        reps = 5
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        ms[what] = (time.perf_counter() - t0) * 1e3 / reps
-    fm._DIGEST_THREADS = threads
+    n = fm._bucket_size(max(pk.codes.size for pk in sweep) + 20)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fm.upload_genomes(sweep, n, dev)
+        torch.cuda.synchronize()
+    ms = {"pack_upload": (time.perf_counter() - t0) * 1e3 / reps}
     print(f"phase 4: a config's host work on its {len(sweep)} genomes: "
-          f"digests {ms['digest']} ms on {threads} threads "
-          f"({ms['digest_1_thread']} ms on 1), packs {ms['pack']} ms")
+          f"packs and uploads {ms['pack_upload']} ms")
     return ms
 
 

@@ -144,7 +144,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  f"{BLOCK} (parallel/allpairs.BLOCK)")
     if args.pair_batch is not None:
         ap.error("--pair-batch: the port's tile sweep has no pair batches "
-                 "(parallel/allpairs.pair_tile_sweep)")
+                 "(parallel/allpairs.mesh_tile_sweep)")
     return args
 
 

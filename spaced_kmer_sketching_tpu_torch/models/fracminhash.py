@@ -29,13 +29,11 @@ Fused multi-seed sketching (BASELINE config 3, `sketch_packed_multiseed`)
 uploads one genome in the compact form and runs S spaced seeds over it in
 one K7 launch (seed-batch mode) and one finish of S rows.
 
-A genome's upload for the batch step (its 2-bit code words and run ends)
-depends on neither the window nor the mask, so it is cached on the device
-across sketchers: the 62-config sweep builds a sketcher per config, and one
-host pack and one upload a genome serve every config.  The cache is a
-module-level LRU keyed by the bucket width, the device and a digest of the
-genome's codes and runs, bounded by UPLOAD_CACHE_BYTES; the run-id plane
-the step reads is expanded from the run ends on the device at dispatch.
+The batch step packs each genome on the host into its 2-bit code words
+and run ends (~0.25 B/nt) and uploads them at every dispatch; the run-id
+plane the step reads is expanded from the run ends on the device.  Nothing
+is kept across sketchers: keying a per-genome cache by the genome's content
+cost the 62-config sweep more host time than the packs it saved.
 
 The counterpart of the JAX package's models/fracminhash.py.
 """
@@ -44,11 +42,9 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import dataclasses
-import hashlib
 import math
 import os
-import threading
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,7 +52,7 @@ import torch
 from ..ani import binomial_estimator, containment
 from ..config import SketchConfig
 from ..ingest.fasta import PackedSeqs, read_fasta
-from ..observability import count as obs_count, get_logger, span
+from ..observability import get_logger, span
 from ..ops.cuda.extract import pack2bit, packed_body
 from ..ops.gram import (LANES, _guard_words, gram_all_pairs_ondevice,
                         pack_keys_tight_np)
@@ -124,110 +120,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# --- the per-genome upload cache ---------------------------------------------
-#: Byte budget of the device upload cache, read at each dispatch; 0
-#: disables it.  An entry is a genome's 2-bit words (n/4 bytes) and run
-#: ends, not its (n,) int32 run-id plane: 2 MiB at n = 2^23 where the plane
-#: alone is 32 MiB, so BASELINE config 2's 100 genomes stay cached through
-#: a sweep instead of cycling through the LRU.
-UPLOAD_CACHE_BYTES = 2 << 30
-
-_UPLOAD_CACHE: "collections.OrderedDict[tuple, GenomeUpload]" = \
-    collections.OrderedDict()
-_upload_cache_held = 0           # bytes of the entries in _UPLOAD_CACHE
-_upload_cache_lock = threading.Lock()
-_DIGEST_PIECE = 1 << 20          # codes a digest thread hashes at a time
-_DIGEST_THREADS = 8
-
-
-@dataclasses.dataclass(frozen=True)
-class GenomeUpload:
+class GenomeUpload(NamedTuple):
     """One genome on the device for the batch step: its codes as (n/16,)
     int32 2-bit words (pack2bit, zeros past the genome) and its run ends
-    (R,) int32 (the cumulative run lengths).  Read only: every dispatch
-    stacks copies of it."""
+    (R,) int32 (the cumulative run lengths)."""
     words: torch.Tensor
     ends: torch.Tensor
-
-    @property
-    def nbytes(self) -> int:
-        return self.words.nbytes + self.ends.nbytes
-
-
-def clear_upload_cache() -> None:
-    """Drop every cached genome upload."""
-    global _upload_cache_held
-    with _upload_cache_lock:
-        _UPLOAD_CACHE.clear()
-        _upload_cache_held = 0
-
-
-def upload_cache_keys(genomes: Sequence[PackedSeqs], n: int,
-                      device: torch.device) -> List[tuple]:
-    """The cache keys of `genomes` in bucket `n` on `device`: a 16-byte
-    blake2b of each genome's code count, its codes' digests and its run
-    lengths (which fix the run-id plane and are known before any plane is
-    built).  The codes are digested in _DIGEST_PIECE pieces on threads
-    (hashlib drops the interpreter lock): one thread hashes a 5 Mnt genome
-    slower than the native pack it would save."""
-    codes = [np.ascontiguousarray(pk.codes, np.uint8) for pk in genomes]
-    with span("sketch.digest"), \
-            cf.ThreadPoolExecutor(max_workers=_DIGEST_THREADS) as pool:
-        pieces = [[pool.submit(_blake2b, c[i:i + _DIGEST_PIECE])
-                   for i in range(0, c.size, _DIGEST_PIECE)] for c in codes]
-        keys = []
-        for pk, c, futures in zip(genomes, codes, pieces):
-            h = hashlib.blake2b(np.int64(c.size).tobytes(), digest_size=16)
-            for f in futures:
-                h.update(f.result())
-            h.update(np.ascontiguousarray(pk.run_lens, np.int64))
-            keys.append((n, device, h.digest()))
-    return keys
-
-
-def _blake2b(data) -> bytes:
-    return hashlib.blake2b(data, digest_size=16).digest()
 
 
 def upload_genomes(genomes: Sequence[PackedSeqs], n: int,
                    device: torch.device) -> List[GenomeUpload]:
-    """The GenomeUploads of `genomes` in bucket `n` on `device`: from the
-    cache when UPLOAD_CACHE_BYTES > 0, else packed and uploaded (and
-    cached, evicting the least recently used entries past the budget but
-    never the newest).  Counts upload_cache_hits, upload_cache_misses and
-    upload_cache_h2d_bytes (the bytes the misses upload)."""
-    global _upload_cache_held
-    budget = UPLOAD_CACHE_BYTES
-    keys = (upload_cache_keys(genomes, n, device) if budget > 0
-            else [None] * len(genomes))
+    """`genomes` packed on the host for bucket `n` and uploaded to
+    `device`, one span sketch.pack_upload a genome."""
     out = []
-    for pk, key in zip(genomes, keys):
-        if key is not None:
-            with _upload_cache_lock:
-                hit = _UPLOAD_CACHE.get(key)
-                if hit is not None:
-                    _UPLOAD_CACHE.move_to_end(key)
-            if hit is not None:
-                obs_count("upload_cache_hits")
-                out.append(hit)
-                continue
+    for pk in genomes:
         with span("sketch.pack_upload"):
             words = pack2bit(np.ascontiguousarray(pk.codes, np.uint8),
                              n // 16)
             ends = np.cumsum(pk.run_lens, dtype=np.int64).astype(np.int32)
-            entry = GenomeUpload(_upload(words.view(np.int32), device),
-                                 _upload(ends, device))
-        obs_count("upload_cache_misses")
-        obs_count("upload_cache_h2d_bytes", entry.nbytes)
-        if key is not None:
-            with _upload_cache_lock:
-                if key not in _UPLOAD_CACHE:
-                    _UPLOAD_CACHE[key] = entry
-                    _upload_cache_held += entry.nbytes
-                while _upload_cache_held > budget and len(_UPLOAD_CACHE) > 1:
-                    _, old = _UPLOAD_CACHE.popitem(last=False)
-                    _upload_cache_held -= old.nbytes
-        out.append(entry)
+            out.append(GenomeUpload(_upload(words.view(np.int32), device),
+                                    _upload(ends, device)))
     return out
 
 
@@ -276,10 +188,10 @@ class FracMinHashSketcher:
     def _dispatch_sketch(self, genomes: Sequence[PackedSeqs], n: int,
                          capacity: int):
         """Enqueue the sketch step of genomes sharing bucket `n`, each
-        taken from the upload cache (or packed and uploaded) and the batch
-        stacked on the device; the launches run asynchronously, so the host
-        takes the next batch while the device sketches this one.  Returns a
-        handle for _collect_sketch."""
+        packed and uploaded and the batch stacked on the device; the
+        launches run asynchronously, so the host takes the next batch
+        while the device sketches this one.  Returns a handle for
+        _collect_sketch."""
         cfg = self.config
         args = _stack_uploads(upload_genomes(genomes, n, self.device), n)
         kw = finish_words(cfg.window)

@@ -3,13 +3,14 @@ the out-of-core per-tile schedule.
 
 The port of the single-device gram routes of the JAX package's
 parallel/allpairs.py (blocked_all_pairs :57, its block-cache schedule
-_gram_blocked_cached :209 -> pair_tile_sweep :282, and its per-tile
-schedule past the budget, :120-194), which its sketcher takes above 2048
-genomes.  The (G, G) matrix is computed in (block x block) macro-tiles:
-each upper-triangle macro-tile is a pair merge of two presorted blocks'
-packed (key, gid) streams (K10) and the rect block of their Gram (K6);
-intersections are symmetric, so each tile also fills its mirror.  The
-reference's ordered all-pairs incl. self, src/generators.hpp:45-58.
+_gram_blocked_cached :209 and that schedule's tile sweep :282, and its
+per-tile schedule past the budget, :120-194), which its sketcher takes
+above 2048 genomes.  The (G, G) matrix is computed in (block x block)
+macro-tiles: each upper-triangle macro-tile is a pair merge of two
+presorted blocks' packed (key, gid) streams (K10) and the rect block of
+their Gram (K6); intersections are symmetric, so each tile also fills its
+mirror.  The reference's ordered all-pairs incl. self,
+src/generators.hpp:45-58.
 
 While the key slab and the presorted cache of every block fit
 CACHE_BUDGET_BYTES, every block is presorted ONCE (K5) into a device-resident
@@ -34,11 +35,13 @@ the next block packs, and presorted from the tight words (K12, K5).
 Otherwise, and on the out-of-core schedule, blocks travel as key words.
 `transport=` picks one for a call.
 
-Over a mesh (parallel/mesh.py; the JAX mesh functions :27, :331-407,
-:435-451): `blocked_all_pairs(mesh=...)` presorts every block once per
-distinct device into a replica of the in-core cache and splits the upper
-triangle of macro-tiles contiguously over the slots (mesh_tile_sweep;
-`mesh_all_pairs_packed` pads the capacity and calls it);
+The in-core tiles are swept over a mesh (parallel/mesh.py; the JAX mesh
+functions :27, :331-407, :435-451), a one-slot mesh on its device when
+`blocked_all_pairs` is given none: every block is presorted once per
+distinct device into a replica of the in-core cache, and the upper
+triangle of macro-tiles is split contiguously over the slots
+(mesh_tile_sweep; `mesh_all_pairs_packed` pads the capacity and calls
+blocked_all_pairs with a mesh);
 `sharded_all_pairs_fn` and `sharded_ani_fn` tile the probe over the
 ("r", "c") grid.  JAX's `sharded_gram_fn` (over
 build_rank_layout) and `sharded_all_pairs_rect_fn` (the probe's blocked
@@ -59,7 +62,7 @@ from ..ops.gram import (LANES, _guard_words, gram_pair_tile,
                         tight_words4)
 from ..ops.intersect import intersection_tile
 from .distributed import all_reduce
-from .mesh import Mesh, pad_to_multiple, split_range
+from .mesh import Mesh, make_mesh, pad_to_multiple, split_range
 from .sketch import gather_slots
 
 # Device bytes the slab and the presorted cache may take together, and the
@@ -108,10 +111,11 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
     Collections whose slab and cache pass budget_bytes take the
     out-of-core schedule, its column cache bounded by col_cache_bytes;
     the two default to CACHE_BUDGET_BYTES and COL_CACHE_BYTES as they
-    stand at the call.  With a `mesh`, each distinct device of this
-    process's slots holds a replica of the in-core cache and the tiles
-    split over the slots (mesh_tile_sweep); the work starts on its first
-    device, and the out-of-core schedule stays there."""
+    stand at the call.  Each distinct device of this process's slots of
+    `mesh` (default: one slot on `device`) holds a replica of the in-core
+    cache and the tiles split over the slots (mesh_tile_sweep); the work
+    starts on its first device, and the out-of-core schedule stays
+    there."""
     if isinstance(keys, torch.Tensor):
         g, device = keys.shape[0], keys.device
         provider = lambda i0, i1: (keys[i0:i1], None)  # noqa: E731
@@ -125,10 +129,11 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
         host_counts = None if counts is None else np.asarray(counts)
         provider = lambda i0, i1: (  # noqa: E731
             host[i0:i1], None if counts is None else host_counts[i0:i1])
-    replicas = [] if mesh is None else mesh.distinct()
-    if replicas:
-        device = replicas[0]
-    device = torch.device("cuda" if device is None else device)
+    if mesh is None:
+        mesh = make_mesh((1, 1), [torch.device(
+            "cuda" if device is None else device)])
+    replicas = mesh.distinct()
+    device = replicas[0]
     if budget_bytes is None:
         budget_bytes = CACHE_BUDGET_BYTES
     if col_cache_bytes is None:
@@ -145,10 +150,8 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
     if _tight(transport, not isinstance(keys, torch.Tensor) and in_core,
               cap, kw, key_bits):
         caches = _presort_tight(provider, pack, g, cap, kw, key_bits, pw,
-                                replicas or [device])
-        if mesh is not None:
-            return mesh_tile_sweep(mesh, caches, g)
-        return pair_tile_sweep(caches[device], g, gidbits=GIDBITS)
+                                replicas)
+        return mesh_tile_sweep(mesh, caches, g)
     if in_core:
         if isinstance(keys, torch.Tensor) and g % BLOCK == 0 and words == kw:
             slab = keys.contiguous()      # the caller's slab, used in place
@@ -157,16 +160,11 @@ def blocked_all_pairs(keys: Union[torch.Tensor, np.ndarray, Provider], *,
                                device=device)
             for b in range(nb):
                 slab[b * BLOCK:(b + 1) * BLOCK] = block_keys(b)
-        if mesh is not None:
-            caches = {d: presort_blocks_packed(
-                slab.to(d), block=BLOCK, key_bits=key_bits, gidbits=GIDBITS,
-                pw=pw) for d in replicas}
-            del slab
-            return mesh_tile_sweep(mesh, caches, g)
-        cache = presort_blocks_packed(slab, block=BLOCK, key_bits=key_bits,
-                                      gidbits=GIDBITS, pw=pw)
+        caches = {d: presort_blocks_packed(
+            slab.to(d), block=BLOCK, key_bits=key_bits, gidbits=GIDBITS,
+            pw=pw) for d in replicas}
         del slab
-        return pair_tile_sweep(cache, g, gidbits=GIDBITS)
+        return mesh_tile_sweep(mesh, caches, g)
     return _out_of_core(block_keys, g, cap, key_bits=key_bits, pw=pw,
                         col_cache_bytes=col_cache_bytes)
 
@@ -318,64 +316,47 @@ def _out_of_core(block_keys: Callable[[int], torch.Tensor], g: int, cap: int,
     return out
 
 
-def pair_tile_sweep(cache: torch.Tensor, g: int, *, gidbits: int
-                    ) -> np.ndarray:
-    """Upper-triangle macro-tile sweep over the presorted cache
-    (nb, pw, rows, 128): every tile (gram_pair_tile) is written with its
-    mirror into a device int32 matrix that is downloaded once at the end
-    (the JAX sweep batches tiles per dispatch and downloads each batch).
-    Spans allpairs.tiles (the launches) and allpairs.download."""
-    nb = cache.shape[0]
-    full = torch.empty((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
-                       device=cache.device)
-    with span("allpairs.tiles"):
-        for bi in range(nb):
-            rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
-            for bj in range(bi, nb):
-                cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
-                t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
-                                   gidbits=gidbits)
-                full[rows, cols] = t
-                if bj != bi:
-                    full[cols, rows] = t.T
-    with span("allpairs.download"):
-        return full[:g, :g].cpu().numpy()
-
-
-# --- over a mesh ------------------------------------------------------------
-
 def mesh_tile_sweep(mesh: Mesh, caches: Dict[torch.device, torch.Tensor],
                     g: int) -> np.ndarray:
-    """The upper-triangle macro-tiles over `caches` (a replica of the
+    """The upper-triangle macro-tile sweep over `caches` (a replica of the
     (nb, pw, rows, 128) presorted cache on each distinct device of this
-    process's slots), split contiguously over the flattened slots as
-    P(("r", "c")) splits them.  Each slot computes its tiles on its own
-    device; the tiles and their mirrors land in one matrix on the first
-    device.  The tiles are disjoint, so the ranks' matrices sum to the
-    whole.  A one-slot mesh is pair_tile_sweep."""
-    if mesh.size == 1:
-        (cache,) = caches.values()
-        return pair_tile_sweep(cache, g, gidbits=GIDBITS)
+    process's slots): the row-major tile list is split contiguously over
+    the flattened slots as P(("r", "c")) splits them, and each of this
+    process's slots computes its share on its own device (gram_pair_tile),
+    a one-slot mesh all of it.  Each tile and its mirror land in one int32
+    matrix on the first device, downloaded once at the end (the JAX sweep
+    batches tiles per dispatch and downloads each batch).  Where other
+    ranks own slots the matrix starts zeroed and the ranks' matrices,
+    whose tiles are disjoint, are summed.  Spans allpairs.tiles (the
+    launches) and allpairs.download."""
     nb = next(iter(caches.values())).shape[0]
     pairs = [(i, j) for i in range(nb) for j in range(i, nb)]
     pp = pad_to_multiple(len(pairs), mesh.size)
     first = next(iter(caches))
-    full = torch.zeros((nb * BLOCK, nb * BLOCK), dtype=torch.int32,
-                       device=first)
+    local = mesh.local_slots()
+    whole = len(local) == mesh.size     # this process writes every tile
+    full = (torch.empty if whole else torch.zeros)(
+        (nb * BLOCK, nb * BLOCK), dtype=torch.int32, device=first)
     with span("allpairs.tiles"):
-        for s in mesh.local_slots():
-            cache = caches[mesh.devices[s]]
+        for s in local:
+            d = mesh.devices[s]
+            cache = caches[d]
             for bi, bj in pairs[split_range(pp, mesh.size, s)]:
                 t = gram_pair_tile(cache[bi], cache[bj], block=BLOCK,
-                                   gidbits=GIDBITS).to(first)
+                                   gidbits=GIDBITS)
+                if d != first:
+                    t = t.to(first)
                 rows = slice(bi * BLOCK, (bi + 1) * BLOCK)
                 cols = slice(bj * BLOCK, (bj + 1) * BLOCK)
                 full[rows, cols] = t
                 if bj != bi:
                     full[cols, rows] = t.T
     with span("allpairs.download"):
-        return all_reduce(full[:g, :g]).cpu().numpy()
+        out = full[:g, :g]
+        return (out if whole else all_reduce(out)).cpu().numpy()
 
+
+# --- over a mesh ------------------------------------------------------------
 
 def mesh_all_pairs_packed(mesh: Mesh, keys_np: np.ndarray, *,
                           key_bits: int) -> np.ndarray:

@@ -19,7 +19,7 @@ Flow per 128-genome block:
     -> live key words of the block's sketches, trimmed to its
        largest count                                               [device]
     -> presort_block_packed (K5)                                   [device]
-    -> pair_tile_sweep macro-tiles (K10, K6)                       [device]
+    -> mesh_tile_sweep macro-tiles (K10, K6)                       [device]
 
 Each block is presorted as soon as it leaves a lookahead window of
 LOOKAHEAD blocks, so raw sketch keys wait in device memory for at most a

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the CLI's sketching on the 62-config sweep and on BASELINE config
-2, with the per-genome upload cache on and off, and optionally a second
-checkout of the repository (a parent commit) beside this one, on one GPU.
+2, optionally beside a second checkout of the repository (a parent
+commit), on one GPU.
 
 Data are written once from --seed as chip_smoke.py writes them (2 FASTAs
 of 4-6 Mnt with N-runs, genome 1 a 3%-substituted copy of genome 0; 100
@@ -9,12 +9,10 @@ related FASTAs of config 2).  Each turn is a process of its own that runs
 the CLI (`driver.main`, --device cuda) three times: config 1 (w=20, k=16)
 on the 2 genomes as a warm-up, the 62-config sweep on them, then config 2
 (w=20, k=16).  It prints one JSON line: the summed "Time taken for
-sketching" of the sweep and of config 2, and the upload cache's hits,
-misses and uploaded bytes over each.  Turns: with --parent DIR (a checkout
-of another commit, e.g. unpacked by `git archive`), the parent, cache on,
-off, off, on, the parent; else on, off, off, on.  A turn with the cache
-off sets models/fracminhash.UPLOAD_CACHE_BYTES to 0.  Every turn must
-write the first turn's CSV bytes.  Run from the repository root:
+sketching" of the sweep and of config 2.  Turns: with --parent DIR (a
+checkout of another commit, e.g. unpacked by `git archive`), the parent,
+this checkout twice, the parent; else this checkout twice.  Every turn
+must write the first turn's CSV bytes.  Run from the repository root:
 
     python3 spaced_kmer_sketching_tpu_torch/tools/time_sweep.py [--parent DIR]
 
@@ -48,37 +46,23 @@ def sketching_ms(argv) -> float:
         r"Time taken for sketching = (\S+) ms", buf.getvalue()))
 
 
-def run_turn(repo: str, cache: str, data: pathlib.Path, tag: str) -> dict:
+def run_turn(repo: str, data: pathlib.Path, tag: str) -> dict:
     """One turn in this process, with the package of checkout `repo`."""
     sys.path.insert(0, repo)
-    from spaced_kmer_sketching_tpu_torch import observability
-    from spaced_kmer_sketching_tpu_torch.models import fracminhash as fm
     from spaced_kmer_sketching_tpu_torch.ops.cuda import build
-    if cache == "off":
-        fm.UPLOAD_CACHE_BYTES = 0
     build.build()
     build.lib()
     genomes = sorted(str(p) for p in (data / "sweep").glob("*.fa"))
     config2 = sorted(str(p) for p in (data / "config2").glob("*.fa"))
-    counts = observability.counters
-
-    def cache_counts():
-        c = counts()
-        return {k: c.get(f"upload_cache_{k}", 0)
-                for k in ("hits", "misses", "h2d_bytes")}
-
-    out = {"repo": repo, "cache": cache}
+    out = {"repo": repo}
     sketching_ms([str(data / f"warm_{tag}.csv"), *genomes, "--window", "20",
                   "--k", "16", "--device", "cuda"])
     for name, argv in (
             ("sweep", [str(data / f"sweep_{tag}.csv"), *genomes]),
             ("config2", [str(data / f"config2_{tag}.csv"), *config2,
                          "--window", "20", "--k", "16"])):
-        before = cache_counts()
         out[f"{name}_sketching_ms"] = sketching_ms([*argv, "--device",
                                                     "cuda"])
-        out[f"{name}_upload_cache"] = {k: v - before[k]
-                                       for k, v in cache_counts().items()}
     return out
 
 
@@ -94,13 +78,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", help="a checkout of another commit")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--turn", nargs=4, metavar=("REPO", "CACHE", "DATA",
-                                                    "TAG"),
+    parser.add_argument("--turn", nargs=3, metavar=("REPO", "DATA", "TAG"),
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.turn:
-        repo, cache, data, tag = args.turn
-        print(json.dumps(run_turn(repo, cache, pathlib.Path(data), tag)))
+        repo, data, tag = args.turn
+        print(json.dumps(run_turn(repo, pathlib.Path(data), tag)))
         return 0
 
     import numpy as np
@@ -114,10 +97,10 @@ def main(argv=None) -> int:
     print(smi)
     cs = load_chip_smoke()
     here = str(ROOT)
-    turns = [(here, "on"), (here, "off"), (here, "off"), (here, "on")]
+    turns = [here, here]
     if args.parent:
         parent = str(pathlib.Path(args.parent).resolve())
-        turns = [(parent, "none"), *turns, (parent, "none")]
+        turns = [parent, *turns, parent]
     build_dir = ROOT / "spaced_kmer_sketching_tpu_torch" / "_build"
     build_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
@@ -128,10 +111,10 @@ def main(argv=None) -> int:
         cs.write_genomes(data / "sweep", rng, 2)
         cs.write_collection(data / "config2", rng)
         lines = []
-        for i, (repo, cache) in enumerate(turns):
+        for i, repo in enumerate(turns):
             proc = subprocess.run(
-                [sys.executable, __file__, "--turn", repo, cache, tmp,
-                 str(i)], capture_output=True, text=True, cwd=repo)
+                [sys.executable, __file__, "--turn", repo, tmp, str(i)],
+                capture_output=True, text=True, cwd=repo)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:], proc.stderr[-4000:],
                       file=sys.stderr)

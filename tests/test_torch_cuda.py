@@ -669,13 +669,11 @@ def test_sketcher_out_of_core_provider_on_card(dev, monkeypatch):
                                   [s.count for s in sketches])
 
 
-def test_upload_cache_sweep_on_card(dev, monkeypatch):
-    """Three genomes with N-runs over four configs (finish_words 1-4) on
-    the card: configs 2-4 upload nothing, every sketch equals the native
-    scalar pipeline's with the cache on and off, and the cached entries
-    lie on the card, unchanged, their run-id planes stacked on the card
-    equal to the host's."""
-    from spaced_kmer_sketching_tpu_torch import observability
+def test_batch_sweep_on_card(dev):
+    """Three genomes with N-runs in three buckets over four configs
+    (finish_words 1-4) on the card: every sketch equals the CPU's and the
+    native scalar pipeline's, and each genome's upload lies on the card,
+    its run-id plane stacked there equal to the host's."""
     from spaced_kmer_sketching_tpu_torch.ingest.fasta import PackedSeqs
     from spaced_kmer_sketching_tpu_torch.models import fracminhash as fm
     rng = np.random.default_rng(15)
@@ -685,44 +683,30 @@ def test_upload_cache_sweep_on_card(dev, monkeypatch):
         lens = np.diff(np.concatenate([[0], cuts, [total]])).astype(np.int64)
         genomes.append(PackedSeqs(
             rng.integers(0, 4, total).astype(np.uint8), lens))
-    sweep = ((14, 9), (24, 16), (40, 24), (60, 40))
-    keys = dict(zip(fm.upload_cache_keys(genomes[:1], 32768, dev)
-                    + fm.upload_cache_keys(genomes[1:2], 65536, dev)
-                    + fm.upload_cache_keys(genomes[2:], 131072, dev),
-                    genomes))
-    fm.clear_upload_cache()
-    try:
-        for budget in (fm.UPLOAD_CACHE_BYTES, 0):
-            monkeypatch.setattr(fm, "UPLOAD_CACHE_BYTES", budget)
-            for c, (window, k) in enumerate(sweep):
-                sk = FracMinHashSketcher(
-                    SketchConfig(window=window, k=k, scale=8), device=dev)
-                observability.reset_counters()
-                got = sk.sketch_packed_batch(genomes)
-                misses = observability.counters().get(
-                    "upload_cache_misses", 0)
-                assert misses == (3 if budget == 0 or c == 0 else 0)
-                for pk, s in zip(genomes, got):
-                    want = native.sketch_codes(
-                        pk.codes, pk.run_lens, sk.mask.lo, sk.mask.hi,
-                        window, sk.salt, 8, False)
-                    np.testing.assert_array_equal(s.keys_u64(), want)
-            if budget:
-                assert set(fm._UPLOAD_CACHE) == set(keys)
-                for key, e in fm._UPLOAD_CACHE.items():
-                    n, pk = key[0], keys[key]
-                    assert e.words.device.type == e.ends.device.type == \
-                        dev.type
-                    words = extract.pack2bit(pk.codes, n // 16)
-                    np.testing.assert_array_equal(
-                        e.words.cpu().numpy().view(np.uint32), words)
-                    rid = np.full(n, -1, np.int32)
-                    rid[:pk.codes.size] = np.repeat(
-                        np.arange(pk.run_lens.size), pk.run_lens)
-                    np.testing.assert_array_equal(
-                        fm._stack_uploads([e], n)[1][0].cpu().numpy(), rid)
-    finally:
-        fm.clear_upload_cache()
+    for window, k in ((14, 9), (24, 16), (40, 24), (60, 40)):
+        cfg = SketchConfig(window=window, k=k, scale=8)
+        sk = FracMinHashSketcher(cfg, device=dev)
+        got = sk.sketch_packed_batch(genomes)
+        cpu = FracMinHashSketcher(cfg, device="cpu") \
+            .sketch_packed_batch(genomes)
+        for pk, s, c in zip(genomes, got, cpu):
+            want = native.sketch_codes(
+                pk.codes, pk.run_lens, sk.mask.lo, sk.mask.hi, window,
+                sk.salt, 8, False)
+            assert s.count == c.count > 0
+            np.testing.assert_array_equal(s.keys, c.keys)
+            np.testing.assert_array_equal(s.keys_u64(), want)
+    for pk, n in zip(genomes, (32768, 65536, 131072)):
+        (e,) = fm.upload_genomes([pk], n, dev)
+        assert e.words.device.type == e.ends.device.type == dev.type
+        np.testing.assert_array_equal(
+            e.words.cpu().numpy().view(np.uint32),
+            extract.pack2bit(pk.codes, n // 16))
+        rid = np.full(n, -1, np.int32)
+        rid[:pk.codes.size] = np.repeat(np.arange(pk.run_lens.size),
+                                        pk.run_lens)
+        np.testing.assert_array_equal(
+            fm._stack_uploads([e], n)[1][0].cpu().numpy(), rid)
 
 
 def raw_batch(rng, g, n, k, real, rid0, short, edges=False):
